@@ -1,0 +1,20 @@
+"""Qwen2-7B [arXiv:2407.10671; hf]. GQA kv=4, QKV bias."""
+
+from ..models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-7b",
+        family="dense",
+        n_layers=28,
+        d_model=3584,
+        n_heads=28,
+        n_kv_heads=4,
+        head_dim=128,
+        d_ff=18944,
+        vocab=152064,
+        activation="silu_glu",
+        qkv_bias=True,
+        rope_theta=1_000_000.0,
+    )

@@ -1,0 +1,95 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Each ``csrc/<name>.cu`` compiles into a shared library of its own with a
+plain C interface (no PyTorch headers, so a build takes seconds).  The
+libraries land in ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the source and the flags: an edited source rebuilds,
+an unchanged one loads at once.  ``build()`` starts one ``nvcc`` per
+missing library, all at once, and waits for them all.  Nothing but the
+sources in the repository goes into a build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("rmsnorm", "flash_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from csrc/ at first use and need the CUDA toolkit"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every library in ``names`` that is not built yet, with all
+    the ``nvcc`` processes running at once.  Returns, per name, the
+    library path, the build seconds (0 if it was already built) and the
+    compiler's ``-Xptxas -v`` report (registers, shared memory, spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: dict[str, dict] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        lib = library_path(name)
+        out[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        out[name].update(seconds=time.perf_counter() - t0, log=log)
+        if proc.returncode:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = _libs[name] = ctypes.CDLL(str(path))
+        return lib

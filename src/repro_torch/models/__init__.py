@@ -1,0 +1,24 @@
+"""Model zoo in PyTorch: the dense family so far (the port of
+``repro.models``), parameterized by ``ModelConfig``."""
+
+from .config import ModelConfig
+from .model import (
+    decode_state_batch_dims,
+    decode_step,
+    init_decode_state,
+    init_params,
+    model_forward,
+    param_shapes,
+    prefill_forward,
+)
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "param_shapes",
+    "model_forward",
+    "prefill_forward",
+    "init_decode_state",
+    "decode_state_batch_dims",
+    "decode_step",
+]
