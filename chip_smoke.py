@@ -11,17 +11,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. build: the CUDA kernels compiled from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once).
 3. check: each kernel against its plain PyTorch version on the card, in
-   bf16 and fp32, at the main path's shapes and at ragged/GQA ones.
+   bf16 and fp32, at both main paths' shapes and at ragged/GQA ones (the
+   SSD scan: y and the final state, with and without pads; flash at
+   zamba2's head_dim 80).
 4. time: each kernel, its plain version and the nearest single PyTorch
-   call, at the main path's shapes, beside the least time the card needs.
+   call (none computes the SSD scan), at the main paths' shapes, beside
+   the least time the card needs.
 5. serve: full-width gemma-2b (bf16, random weights from seed 0) through
    ``ContinuousBatchingEngine``: 8 requests, two arriving mid-decode, one
-   sampled at temperature 0.8; the launch counters show that every
-   prefill and decode step went through the kernels; two greedy requests
-   re-run alone give bitwise-equal tokens.
-6. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
+   sampled at temperature 0.8; the launch counters, zeroed just before
+   and read just after, show that every prefill and decode step went
+   through the kernels; two greedy requests re-run alone give
+   bitwise-equal tokens.
+6. serve_hybrid: the same for full-width zamba2-2.7b (54 Mamba2 layers in
+   9 groups, a weight-shared attention block after each): every prefill
+   launches the SSD kernel 54 times and flash 9 times, every step
+   rmsnorm 127 times.
+7. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
    on the card (kernels) and on the CPU (plain versions): prefill and 8
    teacher-forced decode steps give the same logits within tolerance.
+8. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
+   layers and the shared block), the same way: prefill logits, the conv
+   and SSM states, and 8 decode steps.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,9 +62,18 @@ FP32_FLOPS = 67e12  # outside the tensor cores
 # the ~1..5-sized outputs.  bf16: one rounding of the output (2^-8
 # relative) plus, in attention, the kernel's bf16 rounding of P before PV.
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The SSD scan's y, relative to max|y| (its outputs are sums of terms
+# that cancel, so an element-wise relative bound means nothing near 0).
+# bf16: kernel and plain round X, M and both halves of y at the same
+# places; fp32 sums taken in another order can land on the other side of
+# one of those three roundings, one bf16 unit (2^-8) of a term of size up
+# to max|y| each: 2^-6.  fp32: 1e-4, as above.  The fp32 state is held to
+# 1e-4 * max|state| at both dtypes (it is never rounded to bf16).
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # card vs CPU logits at fp32 over 2 full-width layers: reductions of 2048
 # to 16384 terms summed in another order on each device move logits of
-# size ~1..5 by ~1e-5; a fault in a kernel moves them by far more.
+# size ~1..5 by ~1e-5; a fault in a kernel moves them by far more.  The
+# same holds for zamba2's one group (reductions of 2560 to 10240 terms).
 PARITY_TOL = 1e-3
 
 KERNELS = {
@@ -67,7 +87,13 @@ KERNELS = {
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
     },
+    "ssd_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:81",
+    },
 }
+
 
 
 def emit(phase: str, **fields) -> None:
@@ -82,6 +108,15 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     if not bool(torch.isfinite(got).all()) or bool((diff > tol + tol * want.abs()).any()):
         raise AssertionError(f"max abs err {diff.max().item()} over tolerance {tol}")
     return diff.max().item()
+
+
+def max_err_scaled(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Max |got - want|; raises unless it is within tol * max(1, max|want|)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if not bool(torch.isfinite(got).all()) or err > tol * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"max abs err {err} over {tol} * max|want|")
+    return err
 
 
 def device_ms(fn, arg_sets, replays: int = 5) -> float:
@@ -139,23 +174,43 @@ def phase_build() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3), kernels=report)
 
 
+def _ssd_inputs(gen, b, s, h, p, n, dtype, lengths=None):
+    """x (B, S, H, P); dt from softplus, 0 past each row's length (the
+    serve prefill's pads); B and C as column slices of one in_proj-like
+    output, read through its row stride as the model passes them."""
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device="cuda") - 1)
+    if lengths is not None:
+        dt[torch.arange(s, device="cuda")[None, :] >= lengths[:, None]] = 0.0
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    bc = torch.randn(b, s, 2 * n + h, generator=gen, device="cuda").to(dtype)
+    return x, dt, a_log, bc[..., :n], bc[..., n: 2 * n]
+
+
+# zamba2-2.7b's prefill shapes at 4 slots and prefill_pad 128
+SSD_SHAPE = (4, 128, 80, 64, 64, 64)  # B, S, H, P, N, chunk
+FLASH80_SHAPE = (4, 128, 32, 32, 80)  # B, S, H, KH, D
+
+
 def phase_check() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"rmsnorm": 0.0, "flash_attention": 0.0}  # at the main path's shapes, bf16
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}  # main shapes, bf16
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = KERNEL_TOL[dtype]
-        for m, d in ((512, 2048), (4, 2048), (7, 64)):
+        for m, d in ((512, 2048), (4, 2048), (7, 64), (512, 2560), (512, 5120), (4, 5120)):
             x = torch.randn(m, d, generator=gen, device="cuda").to(dtype)
             w = torch.randn(d, generator=gen, device="cuda") * 0.2
             err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), tol)
             rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
             if dtype == torch.bfloat16 and d == 2048:
                 errs["rmsnorm"] = max(errs["rmsnorm"], err)
-        for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128)):
+        for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128),
+                               FLASH80_SHAPE, (2, 100, 4, 2, 80)):
             q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
                        for n in (h, kh, kh))
             err = max_err(fa.flash_attention(q, k, v), fa.attention_plain(q, k, v), tol)
@@ -163,9 +218,32 @@ def phase_check() -> dict:
                          "dtype": str(dtype), "max_abs_err": err})
             if dtype == torch.bfloat16 and (b, s, h, kh, d) == (4, 128, 8, 1, 256):
                 errs["flash_attention"] = err
+        _, _, h, p, n, q = SSD_SHAPE
+        for shape, lengths in ((SSD_SHAPE, None),
+                               ((4, 64, h, p, n, q), torch.tensor([64, 1, 37, 63], device="cuda"))):
+            b, s, h, p, n, q = shape
+            args = _ssd_inputs(gen, b, s, h, p, n, dtype, lengths)
+            y, state = ss.ssd_scan(*args, q)
+            want_y, want_state = ss.ssd_plain(*args, q, return_state=True)
+            err = max_err_scaled(y, want_y, SSD_TOL[dtype])
+            err_state = max_err_scaled(state, want_state, SSD_TOL[torch.float32])
+            rows.append({"kernel": "ssd_scan", "shape": list(shape), "dtype": str(dtype),
+                         "pads": lengths is not None, "max_abs_err": err,
+                         "max_abs_err_state": err_state,
+                         "max_abs_y": want_y.float().abs().max().item(),
+                         "max_abs_state": want_state.abs().max().item()})
+            if dtype == torch.bfloat16 and lengths is None:
+                errs["ssd_scan"] = err
     torch.cuda.synchronize()
-    emit("check", tolerance={str(k): v for k, v in KERNEL_TOL.items()}, cases=rows)
+    emit("check", tolerance={str(k): v for k, v in KERNEL_TOL.items()},
+         ssd_tolerance={str(k): v for k, v in SSD_TOL.items()}, cases=rows)
     return errs
+
+
+def _bound(bytes_: float, flops: float, peak: float) -> dict:
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
+    return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_time(card: dict) -> dict:
@@ -173,6 +251,7 @@ def phase_time(card: dict) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = {}
@@ -182,29 +261,17 @@ def phase_time(card: dict) -> dict:
         return [(torch.randn(m, d, generator=gen, device="cuda").to(torch.bfloat16), w)
                 for _ in range(n)]
 
-    for label, m, n in (("prefill", 512, 24), ("decode", 4, 24)):
-        d = 2048
-        sets = rms_sets(m, d, n)
+    for label, m, d in (("prefill", 512, 2048), ("decode", 4, 2048),
+                        ("hybrid_gate_prefill", 512, 5120)):
+        sets = rms_sets(m, d, 24)
         lib_sets = [(x, (1.0 + w).to(x.dtype)) for x, w in sets]
-        bytes_ = 2 * m * d * 2 + 4 * d
-        flops = 4 * m * d
         times[("rmsnorm", label)] = {
             "shape": [m, d], "dtype": "bfloat16",
             "ms": device_ms(rn.rmsnorm, sets),
             "plain_ms": device_ms(rn.rmsnorm_plain, sets),
-            "library_ms": device_ms(lambda x, w1: F.rms_norm(x, (d,), w1, 1e-5), lib_sets),
-            "bytes": bytes_, "flops": flops,
-            "bound_ms": max(bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3,
-            "bound_by": "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations",
+            "library_ms": device_ms(lambda x, w1, d=d: F.rms_norm(x, (d,), w1, 1e-5), lib_sets),
+            **_bound(2 * m * d * 2 + 4 * d, 4 * m * d, FP32_FLOPS),
         }
-
-    b, s, h, kh, d = 4, 128, 8, 1, 256
-    sets = [tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(torch.bfloat16)
-                  for n in (h, kh, kh)) for _ in range(24)]
-    # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
-    flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
-    bytes_ = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
-    t_ops, t_bytes = flops / BF16_FLOPS, bytes_ / HBM_BYTES_PER_S
 
     def library(q, k, v):
         return F.scaled_dot_product_attention(
@@ -212,14 +279,35 @@ def phase_time(card: dict) -> dict:
             is_causal=True, enable_gqa=True,
         )
 
-    times[("flash_attention", "prefill")] = {
-        "shape": [b, s, h, kh, d], "dtype": "bfloat16",
-        "ms": device_ms(fa.flash_attention, sets),
-        "plain_ms": device_ms(fa.attention_plain, sets),
-        "library_ms": device_ms(library, sets),
-        "bytes": bytes_, "flops": flops,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    for label, (b, s, h, kh, d) in (("prefill", (4, 128, 8, 1, 256)),
+                                    ("hybrid_prefill", FLASH80_SHAPE)):
+        sets = [tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      for n in (h, kh, kh)) for _ in range(24)]
+        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
+        flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
+        times[("flash_attention", label)] = {
+            "shape": [b, s, h, kh, d], "dtype": "bfloat16",
+            "ms": device_ms(fa.flash_attention, sets),
+            "plain_ms": device_ms(fa.attention_plain, sets),
+            "library_ms": device_ms(library, sets),
+            **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
+        }
+
+    b, s, h, p, n, q = SSD_SHAPE
+    sets = [_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16) for _ in range(16)]
+    # bytes: bf16 x in, y out; fp32 dt in, state out; bf16 B, C in.
+    # operations: per (b, h, chunk) the lower triangle of C B^T and of M X
+    # (Q(Q+1)/2 entries of N and P products), C state and the state
+    # update (Q N P each), two flops per product, on bf16 inputs
+    bytes_ = 2 * 2 * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * 2 * b * s * n + 4 * h
+    tri = q * (q + 1) // 2
+    flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
+    times[("ssd_scan", "prefill")] = {
+        "shape": list(SSD_SHAPE), "dtype": "bfloat16",
+        "ms": device_ms(lambda *a: ss.ssd_scan(*a, q), sets),
+        "plain_ms": device_ms(lambda *a: ss.ssd_plain(*a, q, return_state=True), sets),
+        "library_ms": None,  # no single PyTorch call computes the SSD scan
+        **_bound(bytes_, flops, BF16_FLOPS),
     }
     emit("time", card=card["nvidia_smi"], kernels=[
         {"kernel": k, "at": label, **v} for (k, label), v in times.items()
@@ -261,14 +349,33 @@ def _profile_decode(eng, steps: int = 8) -> dict:
     }
 
 
-def phase_serve(card: dict) -> dict:
+def _counters():
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+
+
+def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
+    """Launches of each kernel that a serve run of ``cfg`` must make:
+    rmsnorm twice per layer and once for the head at every step (a hybrid
+    layer's ln and gate norm; two per shared block), flash once per
+    attention block per prefill, the SSD scan once per Mamba2 layer per
+    prefill."""
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        return {"rmsnorm": (2 * cfg.n_layers + 2 * groups + 1) * (prefill_steps + decode_steps),
+                "flash_attention": groups * prefill_steps,
+                "ssd_scan": cfg.n_layers * prefill_steps}
+    return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefill_steps + decode_steps),
+            "flash_attention": cfg.n_layers * prefill_steps, "ssd_scan": 0}
+
+
+def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models import init_params
     from repro_torch.serve import ContinuousBatchingEngine
 
-    cfg = get_config("gemma-2b")
+    cfg = get_config(arch)
     geo = dict(slots=4, prefill_pad=128, max_seq=512, device="cuda")
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
     eng = ContinuousBatchingEngine(cfg, params, **geo)
@@ -287,7 +394,9 @@ def phase_serve(card: dict) -> dict:
         return e.submit(r["prompt"], max_new=r["max_new"],
                         temperature=r["temperature"], seed=r["seed"])
 
-    rn.launches = fa.launches = 0
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     live = [submit(eng, r) for r in reqs[:6]]
@@ -299,14 +408,12 @@ def phase_serve(card: dict) -> dict:
             live += [submit(eng, r) for r in reqs[6:]]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rn.launches, "flash_attention": fa.launches}
+    launches = {name: mod.launches for name, mod in counters.items()}
 
     stats = eng.serve_stats()
-    per_step = 2 * cfg.n_layers + 1
-    if launches["rmsnorm"] != per_step * (stats["prefill_steps"] + stats["decode_steps"]):
-        raise AssertionError(f"rmsnorm launches {launches} vs steps {stats}")
-    if launches["flash_attention"] != cfg.n_layers * stats["prefill_steps"]:
-        raise AssertionError(f"flash launches {launches} vs steps {stats}")
+    want = expected_launches(cfg, stats["prefill_steps"], stats["decode_steps"])
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want} for steps {stats}")
     for r, req in zip(reqs, live):
         if len(req.tokens) != r["max_new"] or not all(0 <= t < cfg.vocab for t in req.tokens):
             raise AssertionError(f"request {req.rid}: {len(req.tokens)} tokens, want {r['max_new']}")
@@ -323,6 +430,7 @@ def phase_serve(card: dict) -> dict:
     profile = _profile_decode(eng)
     out = {
         "card": card["nvidia_smi"], "model": cfg.name, "dtype": "bfloat16",
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "slots": 4, "prefill_pad": 128, "max_seq": 512, "requests": len(reqs),
         "prompt_lens": lens.tolist(), "max_new": news.tolist(),
         "tokens": stats["tokens_generated"], "wall_s": wall,
@@ -335,9 +443,10 @@ def phase_serve(card: dict) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "profile": profile,
     }
-    emit("serve", **out)
-    del eng, params
+    emit(phase, **out)
+    del eng, iso, params
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     return out
 
 
@@ -345,44 +454,52 @@ def _to_cpu(tree: dict) -> dict:
     return {k: _to_cpu(v) if isinstance(v, dict) else v.to("cpu") for k, v in tree.items()}
 
 
-def phase_parity() -> dict:
-    from repro_torch.configs import get_config
+def phase_parity(cfg, phase: str = "parity", s: int = 16, short: int = 9) -> dict:
+    """``cfg`` in fp32 with the same weights on the card (kernels) and on
+    the CPU (plain versions): prefill logits and decode state of two rows
+    (one right-padded to ``short``), then 8 teacher-forced decode steps."""
     from repro_torch.models import decode_step, init_decode_state, init_params, prefill_forward
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("gemma-2b"), n_layers=2)
     gpu = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
     cpu = _to_cpu(gpu)  # the same weights, moved with .to()
     rng = np.random.default_rng(1)
-    b, s, steps = 2, 16, 8
+    b, steps = 2, 8
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
-    lengths = torch.tensor([16, 9])
-    tokens[1, 9:] = 0
+    lengths = torch.tensor([s, short])
+    tokens[1, short:] = 0
     forced = torch.from_numpy(rng.integers(0, cfg.vocab, (b, steps)))
 
-    errs = []
     runs = {}
     for dev, params in (("cuda", gpu), ("cpu", cpu)):
         logits, pstate = prefill_forward(cfg, params, tokens.to(dev), lengths.to(dev),
                                          state_dtype=torch.float32)
         state = init_decode_state(cfg, b, s + steps, dtype=torch.float32, device=dev)
         for key in state:
-            state[key][:, :, :s] = pstate[key]
+            if key in ("k", "v"):
+                state[key][:, :, :s] = pstate[key]
+            else:  # the hybrid's conv tails and SSM states
+                state[key].copy_(pstate[key])
         seq = [logits.cpu()]
         pos = lengths.to(dev)
         for t in range(steps):
             logits, state = decode_step(cfg, params, state, forced[:, t:t + 1].to(dev), pos)
             seq.append(logits.cpu())
             pos = pos + 1
-        runs[dev] = seq
-    for g, c in zip(runs["cuda"], runs["cpu"]):
-        errs.append(max_err(g[:, :cfg.vocab], c[:, :cfg.vocab], PARITY_TOL))
+        runs[dev] = (seq, {k: v.cpu() for k, v in pstate.items() if k not in ("k", "v")})
+    errs = [max_err(g[:, :cfg.vocab], c[:, :cfg.vocab], PARITY_TOL)
+            for g, c in zip(runs["cuda"][0], runs["cpu"][0])]
+    state_errs = {k: max_err(v, runs["cpu"][1][k], PARITY_TOL) for k, v in runs["cuda"][1].items()}
     out = {"model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": "float32", "tf32": [torch.backends.cuda.matmul.allow_tf32,
                                         torch.backends.cudnn.allow_tf32],
-           "tolerance": PARITY_TOL, "steps": len(errs), "max_abs_err": max(errs)}
-    emit("parity", **out)
+           "seq": s, "lengths": lengths.tolist(),
+           "tolerance": PARITY_TOL, "steps": len(errs), "max_abs_err": max(errs),
+           "state_max_abs_err": state_errs}
+    emit(phase, **out)
+    del gpu, cpu
+    torch.cuda.empty_cache()
     return out
 
 
@@ -397,19 +514,25 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
 
     card = phase_device()
     phase_build()
     errs = phase_check()
     times = phase_time(card)
-    serve = phase_serve(card)
-    phase_parity()
+    serves = {"serve": phase_serve(card, "gemma-2b", "serve"),
+              "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid")}
+    phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2), "parity")
+    phase_parity(dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
+                                     hybrid_attn_every=6), "parity_hybrid", s=64, short=37)
 
     kernels = []
     for name, meta in KERNELS.items():
         t = times[(name, "prefill")]
+        by_path = {path: out["launches"][name] for path, out in serves.items()}
         kernels.append({
-            "name": name, **meta, "launches": serve["launches"][name],
+            "name": name, **meta, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "at": t["shape"],
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

@@ -342,7 +342,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q, o: (B, S, H, D); k, v: (B, S, KH, D); all contiguous, one dtype
 // (0 = float32, 1 = bfloat16).  H % KH == 0; D <= 256 in fp32, D in
-// {64, 128, 256} in bf16 with 16-byte aligned pointers.  Returns a
+// {64, 80, 128, 256} in bf16 with 16-byte aligned pointers.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
@@ -357,6 +357,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 1) {
     switch (d) {
       case 64: return (int)launch_bf16<64>(q, k, v, o, B, S, H, KH, scale, causal, st);
+      case 80: return (int)launch_bf16<80>(q, k, v, o, B, S, H, KH, scale, causal, st);
       case 128: return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, st);
       case 256: return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, st);
       default: return (int)cudaErrorInvalidValue;

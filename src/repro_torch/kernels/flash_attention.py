@@ -22,7 +22,7 @@ launches = 0  # kernel launches so far; chip_smoke.py zeroes and reads it
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-BF16_HEAD_DIMS = (64, 128, 256)  # the kernel's compiled tile widths
+BF16_HEAD_DIMS = (64, 80, 128, 256)  # the kernel's compiled tile widths
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,10 +1,12 @@
 """Natural-shape wrappers over the kernels, dispatching by device.
 
-The port's ``repro.kernels.ops``: callers pass (..., D) activations and
-(B, S, H, D) attention inputs.  A CUDA tensor goes to the hand-written
-kernel (or the wrapper raises); a CPU tensor to its plain version.
+The port's ``repro.kernels.ops``: callers pass (..., D) activations,
+(B, S, H, D) attention inputs and the SSD scan's (B, S, H, P) inputs.
+A CUDA tensor goes to the hand-written kernel (or the wrapper raises); a
+CPU tensor to its plain version.
 Unlike the JAX wrapper nothing is padded or repeated here: the attention
-kernel masks the ragged tail and reads shared kv heads itself.
+kernel masks the ragged tail and reads shared kv heads itself, and the
+SSD kernel pre-scales x by dt and takes the cumulative sum itself.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import torch
 
 from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm
+from .ssd_scan import ssd_scan
 
-__all__ = ["attention", "rmsnorm_op"]
+__all__ = ["attention", "rmsnorm_op", "ssd"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,3 +30,12 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Ten
     """RMSNorm over the last dim of any (..., D) tensor."""
     shape = x.shape
     return rmsnorm(x.reshape(-1, shape[-1]), w, eps).reshape(shape)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bm: torch.Tensor,
+        cm: torch.Tensor, *, chunk: int = 64, return_state: bool = False):
+    """Mamba2 SSD with natural layouts (drop-in for ``ssd_chunked``): x
+    (B, S, H, P), dt (B, S, H), a_log (H,), bm/cm (B, S, N) -> y (B, S,
+    H, P), and with ``return_state`` also the (B, H, P, N) fp32 state."""
+    y, state = ssd_scan(x, dt, a_log, bm, cm, chunk)
+    return (y, state) if return_state else y

@@ -1,11 +1,12 @@
 """Model assembly in PyTorch: param shapes/init, forward, prefill, decode.
 
-The port of ``repro.models.model`` for the dense family; the other
-families raise ``NotImplementedError`` until their slices.  Parameters
-keep the JAX package's tree: a dict whose ``layers`` leaves are stacked
-on a leading L axis, so ``repro_torch.weights`` maps the reference's
-params leaf for leaf.  A Python loop over the layer index replaces
-``lax.scan``.
+The port of ``repro.models.model`` for the dense and hybrid (Zamba2)
+families; moe and ssm raise ``NotImplementedError`` until their slices.
+Parameters keep the JAX package's tree: a dict whose ``layers`` leaves
+are stacked on a leading L axis (hybrid: (groups, every) axes, plus the
+weight-shared ``shared`` block), so ``repro_torch.weights`` maps the
+reference's params leaf for leaf.  A Python loop over the layer (hybrid:
+group and layer) index replaces ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import torch
 from .._device import resolve_device
 from .config import ModelConfig
 from .layers import (
-    attention,
     attention_decode,
     attention_prefill,
     attn_param_shapes,
@@ -26,21 +26,31 @@ from .layers import (
     positions_for,
     rms_norm,
 )
+from .mamba2 import (
+    CONV_K,
+    mamba2_block,
+    mamba2_decode_step,
+    mamba2_param_shapes,
+    mamba2_prefill,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter shapes & init
 # ---------------------------------------------------------------------------
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "hybrid")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense only)"
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(ported: {', '.join(PORTED_FAMILIES)})"
         )
 
 
-def _layer_shapes(cfg: ModelConfig) -> dict:
-    _require_dense(cfg)
+def _attn_block_shapes(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {
         "ln1": (d,),
@@ -50,6 +60,13 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
     }
 
 
+def _layer_shapes(cfg: ModelConfig) -> dict:
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return {"ln": (cfg.d_model,), "mix": mamba2_param_shapes(cfg)}
+    return _attn_block_shapes(cfg)
+
+
 def _stack(shapes: dict, *lead: int) -> dict:
     return {
         k: _stack(v, *lead) if isinstance(v, dict) else (*lead, *v)
@@ -57,9 +74,26 @@ def _stack(shapes: dict, *lead: int) -> dict:
     }
 
 
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, every) of the hybrid stack: a weight-shared attention
+    block after each group of ``every`` Mamba2 layers."""
+    every = cfg.hybrid_attn_every
+    if cfg.n_layers % every:
+        raise ValueError(
+            f"{cfg.name}: n_layers {cfg.n_layers} not divisible by "
+            f"hybrid_attn_every {every}"
+        )
+    return cfg.n_layers // every, every
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     d = {"embed": (cfg.vocab_padded, cfg.d_model)}
-    d["layers"] = _stack(_layer_shapes(cfg), cfg.n_layers)
+    layer = _layer_shapes(cfg)
+    if cfg.family == "hybrid":
+        d["layers"] = _stack(layer, *_groups(cfg))
+        d["shared"] = _attn_block_shapes(cfg)  # one weight-shared block (Zamba2)
+    else:
+        d["layers"] = _stack(layer, cfg.n_layers)
     d["final_norm"] = (cfg.d_model,)
     if not cfg.tie_embeddings:
         d["lm_head"] = (cfg.d_model, cfg.vocab_padded)
@@ -67,17 +101,32 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def keeps_fp32(name: str) -> bool:
-    """Leaves the models keep in fp32 whatever the working dtype: the
-    norm weights (the rms weight is ``1 + w``)."""
-    return name.startswith(("ln", "gate_norm", "final_norm"))
+    """Leaves the models keep in fp32 whatever the working dtype
+    (``repro.models.model.abstract_params``): the norm weights (the rms
+    weight is ``1 + w``), the SSM decay, step bias and skip, and RWKV's
+    mixing and decay leaves."""
+    return name in ("A_log", "dt_bias", "D_skip", "u", "w0") or name.startswith(
+        ("mu_", "ln", "gate_norm", "final_norm"))
 
 
 def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
                device: torch.device) -> torch.Tensor:
-    """``repro.models.model._init_leaf``'s name rules for the dense tree:
-    zero fp32 norm weights, zero biases, fan-in normal matrices."""
-    if keeps_fp32(name):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    """``repro.models.model._init_leaf``'s name rules for the dense and
+    hybrid trees: the SSM leaves' fixed fp32 values (broadcast over the
+    stacked lead dims), zero fp32 norm weights, zero biases, fan-in normal
+    matrices."""
+    if name == "A_log":
+        base = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32))
+        return base.to(device).expand(shape).contiguous()
+    if name == "dt_bias":
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), shape[-1],
+                                      dtype=torch.float64))
+        base = torch.log(torch.expm1(dt)).to(torch.float32)
+        return base.to(device).expand(shape).contiguous()
+    if name == "D_skip":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if name.startswith(("ln", "gate_norm", "final_norm")):
+        return torch.zeros(shape, dtype=torch.float32, device=device)  # rms weight is 1 + w
     if name.startswith("b") or len(shape) == 1:
         return torch.zeros(shape, dtype=dtype, device=device)
     fan_in = shape[-2]
@@ -139,11 +188,29 @@ def _mask_vocab_pad(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+    """Attention + FFN block: a dense layer, or the hybrid's shared block.
+    Returns (x, k, v) with the block's pre-repeat K/V."""
+    a, k, v = attention_prefill(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                                positions)
+    x = x + a
+    return x + ffn(cfg, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps)), k, v
+
+
+def _hybrid_layers(cfg: ModelConfig, params: dict):
+    """(group, layer index in group, layer params) in order."""
+    groups, every = _groups(cfg)
+    for g in range(groups):
+        gp = _layer(params["layers"], g)
+        for e in range(every):
+            yield g, e, _layer(gp, e)
+
+
 def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
              positions=None) -> torch.Tensor:
     """Embedding and every layer: the (B, S, D) hidden states before the
     final norm."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if inputs_embeds is None:
         x = _embed(cfg, params, tokens)
     else:
@@ -151,10 +218,15 @@ def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
     b, s = x.shape[:2]
     if positions is None:
         positions = positions_for(cfg, b, s, device=x.device)
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        for _, e, lp in _hybrid_layers(cfg, params):
+            x = x + mamba2_block(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps))
+            if e == every - 1:
+                x = _attn_block(cfg, params["shared"], x, positions)[0]
+        return x
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        x = x + attention(cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
-        x = x + ffn(cfg, lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        x = _attn_block(cfg, _layer(params["layers"], i), x, positions)[0]
     return x
 
 
@@ -179,8 +251,20 @@ def last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda") -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        g, e = _groups(cfg)
+        kv = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        ph = cfg.d_inner // cfg.ssm_heads
+        return {
+            "conv": torch.zeros((g, e, batch, CONV_K - 1, cfg.d_inner), dtype=dtype,
+                                device=dev),
+            "ssm": torch.zeros((g, e, batch, cfg.ssm_heads, ph, cfg.ssm_state),
+                               dtype=torch.float32, device=dev),
+            "k": torch.zeros(kv, dtype=dtype, device=dev),
+            "v": torch.zeros(kv, dtype=dtype, device=dev),
+        }
     kv = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(kv, dtype=dtype, device=dev),
@@ -191,7 +275,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
 def decode_state_batch_dims(cfg: ModelConfig) -> dict:
     """Index of the per-request batch axis in each decode-state leaf — the
     axis the serve engine scatters admitted rows along."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.family == "hybrid":
+        return {"conv": 2, "ssm": 2, "k": 1, "v": 1}
     return {"k": 1, "v": 1}
 
 
@@ -201,46 +287,68 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     tokens: (B, S) right-padded; lengths: (B,) real lengths (>= 1).
     Returns (last-token logits (B, V) float32 with the padded vocab at
-    -1e30, decode state {"k", "v"} of (L, B, S, KH, Dh)).  Pads sit after
-    every real token, so the causal mask keeps them out of real rows and
-    their KV rows lie beyond the decode validity mask; each row is
-    computed independently of its batch companions."""
-    _require_dense(cfg)
+    -1e30, decode state): dense {"k", "v"} of (L, B, S, KH, Dh); hybrid
+    also {"conv": (G, E, B, K-1, Di), "ssm": (G, E, B, H, P, N) fp32} with
+    K/V of (G, B, S, KH, Dh).  Pads sit after every real token: the
+    causal mask keeps them out of real rows, their KV rows lie beyond the
+    decode validity mask, and in the SSM they take dt=0 (identity); each
+    row is computed independently of its batch companions."""
+    _require_ported(cfg)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
-    positions = positions_for(cfg, b, s, device=x.device)
-    kv = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
-    state = {
-        "k": torch.empty(kv, dtype=state_dtype, device=x.device),
-        "v": torch.empty(kv, dtype=state_dtype, device=x.device),
-    }
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        a, ck, cv = attention_prefill(
-            cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions
-        )
-        x = x + a
-        x = x + ffn(cfg, lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-        state["k"][i] = ck
-        state["v"][i] = cv
-    last = (lengths.to(device=x.device, dtype=torch.int64) - 1)
-    x_last = x[torch.arange(b, device=x.device), last]  # (B, D)
+    dev = x.device
+    positions = positions_for(cfg, b, s, device=dev)
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    state = init_decode_state(cfg, b, s, dtype=state_dtype, device=dev)
+    if cfg.family == "hybrid":
+        e = cfg.hybrid_attn_every
+        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+        for gi, ei, lp in _hybrid_layers(cfg, params):
+            out, st = mamba2_prefill(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps),
+                                     valid, lengths, state_dtype=state_dtype)
+            x = x + out
+            state["conv"][gi, ei] = st["conv"]
+            state["ssm"][gi, ei] = st["ssm"]
+            if ei == e - 1:
+                x, ck, cv = _attn_block(cfg, params["shared"], x, positions)
+                state["k"][gi] = ck
+                state["v"][gi] = cv
+    else:
+        for i in range(cfg.n_layers):
+            x, ck, cv = _attn_block(cfg, _layer(params["layers"], i), x, positions)
+            state["k"][i] = ck
+            state["v"][i] = cv
+    x_last = x[torch.arange(b, device=dev), lengths - 1]  # (B, D)
     return last_logits(cfg, params, x_last), state
+
+
+def _decode_attn_block(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos):
+    a, _, _ = attention_decode(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
+                               cache_k, cache_v, pos)
+    x = x + a
+    return x + ffn(cfg, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
 def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 tokens: torch.Tensor, pos):
     """One decode step.  tokens: (B, 1); pos: scalar current index or (B,)
-    per-slot positions.  Returns (logits (B, V) float32, state): the KV
-    caches in ``state`` are updated in place and returned."""
-    _require_dense(cfg)
+    per-slot positions.  Returns (logits (B, V) float32, state): every
+    leaf of ``state`` (KV caches; hybrid conv tails and SSM states) is
+    updated in place and returned."""
+    _require_ported(cfg)
     x = _embed(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        a, _, _ = attention_decode(
-            cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            state["k"][i], state["v"][i], pos,
-        )
-        x = x + a
-        x = x + ffn(cfg, lp["ffn"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        for g, e, lp in _hybrid_layers(cfg, params):
+            layer_state = {"conv": state["conv"][g, e], "ssm": state["ssm"][g, e]}
+            out, _ = mamba2_decode_step(cfg, lp["mix"], layer_state,
+                                        rms_norm(x, lp["ln"], cfg.norm_eps))
+            x = x + out
+            if e == every - 1:
+                x = _decode_attn_block(cfg, params["shared"], x, state["k"][g],
+                                       state["v"][g], pos)
+    else:
+        for i in range(cfg.n_layers):
+            x = _decode_attn_block(cfg, _layer(params["layers"], i), x,
+                                   state["k"][i], state["v"][i], pos)
     return last_logits(cfg, params, x[:, 0]), state

@@ -32,8 +32,9 @@ def params_from_numpy(tree: dict, device="cuda", dtype=None) -> dict:
     """The port's parameter dict from a tree of NumPy arrays.
 
     ``dtype=None`` keeps every leaf's dtype; a torch dtype casts every
-    floating leaf except the fp32 norm weights, as ``init_params`` would
-    have made them."""
+    floating leaf except those the models keep in fp32 (``keeps_fp32``:
+    the norm weights and the SSM's A_log, dt_bias, D_skip), as
+    ``init_params`` would have made them."""
     dev = resolve_device(device)
 
     def walk(node):

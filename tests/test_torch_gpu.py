@@ -4,7 +4,13 @@ Marked ``gpu``: they skip where no CUDA device is present and run on the
 card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Tolerances, relative and absolute: 1e-4 at fp32 (the same arithmetic
 summed in another order), 2e-2 at bf16 (one bf16 rounding of the output,
-plus the kernel's bf16 rounding of P before P V).
+plus the kernel's bf16 rounding of P before P V).  The SSD scan's y is
+held to a tolerance relative to its largest magnitude: at bf16 the kernel
+rounds X, M and both halves of y where the plain version does, so they
+differ where fp32 sums taken in another order land on the other side of
+a bf16 rounding, one bf16 unit (2^-8) of a term of size up to max|y| for
+each of those three roundings: 2^-6 * max|y|.  Its fp32 state is held to
+1e-4 * max|state| at both dtypes.
 """
 
 import pytest
@@ -13,6 +19,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -45,6 +52,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     (2, 100, 8, 1, 256),   # ragged S
     (2, 200, 8, 2, 128),   # GQA
     (1, 64, 4, 4, 64),     # MHA
+    (4, 128, 32, 32, 80),  # zamba2-2.7b's shared block: head_dim 80
+    (2, 100, 4, 2, 80),    # head_dim 80, ragged S, GQA
 ])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -57,6 +66,55 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal, dtype):
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _ssd_inputs(g, b, s, h, p, n, dtype, lengths=None):
+    """x (B, S, H, P); dt from softplus, 0 past each row's length; B and C
+    as column slices of one in_proj-like output, as the model passes them."""
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g, device="cuda") - 1)
+    if lengths is not None:
+        dt[torch.arange(s, device="cuda")[None, :] >= lengths[:, None]] = 0.0
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    bc = torch.randn(b, s, 3 * n, generator=g, device="cuda").to(dtype)
+    return x, dt, a_log, bc[..., n: 2 * n], bc[..., 2 * n:]
+
+
+def _close_to_scale(got, want, tol):
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= tol * max(1.0, want.float().abs().max().item()), diff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,q,ragged", [
+    (4, 128, 80, 64, 64, 64, False),  # zamba2-2.7b prefill
+    (3, 64, 8, 64, 64, 64, True),     # pads (dt = 0) past each row's length
+    (2, 32, 3, 32, 8, 8, False),      # the reduced config's widths
+])
+def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, q, ragged, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    lengths = torch.tensor([s, 1, s // 2 + 3][:b], device=cuda) if ragged else None
+    args = _ssd_inputs(g, b, s, h, p, n, dtype, lengths)
+    before = ss.launches
+    y, state = ss.ssd_scan(*args, q)
+    assert ss.launches == before + 1
+    want_y, want_state = ss.ssd_plain(*args, q, return_state=True)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    _close_to_scale(y, want_y, SSD_TOL[dtype])
+    _close_to_scale(state, want_state, SSD_TOL[torch.float32])
+
+
+def test_ssd_kernel_pads_are_exact(cuda):
+    """dt = 0 past a row's length: the state equals the unpadded run's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, dt, a_log, bm, cm = _ssd_inputs(g, 1, 128, 4, 64, 64, torch.bfloat16)
+    dt[:, 64:] = 0.0
+    y, state = ss.ssd_scan(x, dt, a_log, bm, cm, 64)
+    y64, state64 = ss.ssd_scan(x[:, :64], dt[:, :64], a_log, bm[:, :64], cm[:, :64], 64)
+    assert torch.equal(state, state64) and torch.equal(y[:, :64], y64)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.randn(4, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -66,3 +124,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 8, 4, 24, device=cuda, dtype=torch.bfloat16)  # head_dim 24
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, dt, a_log, bm, cm = _ssd_inputs(g, 1, 96, 2, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError):  # chunk 64 does not divide S 96
+        ss.ssd_scan(x, dt, a_log, bm, cm, 64)
+    with pytest.raises(ValueError):  # a state wider than 64
+        ss.ssd_scan(*_ssd_inputs(g, 1, 64, 2, 64, 128, torch.bfloat16), 64)

@@ -18,6 +18,7 @@ from _torch_parity import np32, shared_params  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import decode_step as jax_decode_step  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models.model import abstract_params  # noqa: E402
 from repro.models.model import prefill_forward as jax_prefill  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import (  # noqa: E402
@@ -32,11 +33,13 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 # gemma: MQA, tied + scaled embeddings, and a vocab below its padding so
-# the -1e30 pad mask is live; qwen2: qkv bias, as reduced (MHA) and GQA
+# the -1e30 pad mask is live; qwen2: qkv bias, as reduced (MHA) and GQA;
+# zamba2: the hybrid family (Mamba2 groups and the weight-shared block)
 ARCHS = {
     "gemma-2b": {"vocab": 250},
     "qwen2-7b": {},
     "qwen2-7b-gqa": {"n_kv_heads": 2},
+    "zamba2-2.7b": {},
 }
 
 
@@ -76,14 +79,33 @@ def test_bridge_casts_all_but_the_norms():
         assert t.dtype == want, path
 
 
+def test_bridge_keeps_the_reference_fp32_leaves():
+    """Cast to bf16, a hybrid tree keeps fp32 exactly where the reference's
+    ``abstract_params`` does: the norms and the SSM's A_log, dt_bias,
+    D_skip."""
+    jcfg = jax_config("zamba2-2.7b").reduced()
+    tree = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0),
+                                                    dtype=jnp.float32))
+    port = dict(_leaves(params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)))
+    want = dict(_leaves(abstract_params(jcfg, dtype=jnp.bfloat16)))
+    assert set(port) == set(want)
+    fp32 = set()
+    for path, t in port.items():
+        assert str(t.dtype).removeprefix("torch.") == want[path].dtype.name, path
+        if t.dtype == torch.float32:
+            fp32.add(path.split("/")[-1])
+    assert {"A_log", "dt_bias", "D_skip", "gate_norm", "ln"} <= fp32
+
+
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_prefill_and_decode_match_jax(name):
     jcfg, tcfg = _cfgs(name)
     jp, tp = shared_params(jcfg, seed=4)
     rng = np.random.default_rng(4)
-    b, s, steps = 3, 10, 4
+    # the hybrid's chunked scan needs S to be a multiple of its chunk (8)
+    b, s, steps = 3, 16 if jcfg.family == "hybrid" else 10, 4
     tokens = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
-    lengths = np.array([10, 3, 7], np.int32)
+    lengths = np.array([s, 3, 7], np.int32)
     for i, n in enumerate(lengths):
         tokens[i, n:] = 0  # right padding
 
@@ -92,16 +114,20 @@ def test_prefill_and_decode_match_jax(name):
     got, tstate = prefill_forward(tcfg, tp, torch.from_numpy(tokens),
                                   torch.from_numpy(lengths), state_dtype=torch.float32)
     np.testing.assert_allclose(np32(got), np32(want), **TOL)
-    for key in ("k", "v"):
+    assert set(tstate) == set(jstate)
+    for key in jstate:
         np.testing.assert_allclose(np32(tstate[key]), np32(jstate[key]), **TOL)
 
     # grow both caches to hold the decode steps, then decode per-row
     smax = s + steps
     pad = ((0, 0), (0, 0), (0, steps), (0, 0), (0, 0))
-    jstate = {k: jnp.pad(v, pad) for k, v in jstate.items()}
+    jstate = {k: jnp.pad(v, pad) if k in ("k", "v") else v for k, v in jstate.items()}
     state = init_decode_state(tcfg, b, smax, dtype=torch.float32, device="cpu")
-    for key in ("k", "v"):
-        state[key][:, :, :s] = tstate[key]
+    for key in state:
+        if key in ("k", "v"):
+            state[key][:, :, :s] = tstate[key]
+        else:
+            state[key].copy_(tstate[key])
     pos = lengths.copy()
     tok = np.asarray(want).argmax(-1).astype(np.int32)
     for _ in range(steps):
@@ -111,7 +137,7 @@ def test_prefill_and_decode_match_jax(name):
                                  torch.from_numpy(pos))
         np.testing.assert_allclose(np32(got), np32(want), **TOL)
         tok, pos = np.asarray(want).argmax(-1).astype(np.int32), pos + 1
-    for key in ("k", "v"):
+    for key in jstate:
         np.testing.assert_allclose(np32(state[key]), np32(jstate[key]), **TOL)
 
 
@@ -149,3 +175,28 @@ def test_init_params_shapes_dtypes_and_statistics():
             assert abs(f.std().item() / std - 1.0) < 0.05, path
     again = dict(_leaves(init_params(tcfg, 0, device="cpu")))
     assert all(torch.equal(again[p], got[p]) for p in got)  # seeded
+
+
+def test_hybrid_init_params_match_the_reference():
+    """zamba2: the (groups, every) stacking, the shared block, the fixed
+    fp32 SSM leaves (equal to the reference's values), zero norms and
+    fan-in normal matrices."""
+    jcfg, tcfg = jax_config("zamba2-2.7b").reduced(), port_config("zamba2-2.7b").reduced()
+    ref = dict(_leaves(jax.tree.map(np.asarray, jax_init_params(
+        jcfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))))
+    got = dict(_leaves(init_params(tcfg, 0, device="cpu")))
+    assert set(got) == set(ref)
+    groups = jcfg.n_layers // jcfg.hybrid_attn_every
+    assert got["/layers/mix/in_proj"].shape[:2] == (groups, jcfg.hybrid_attn_every)
+    for path, t in got.items():
+        want = ref[path]
+        assert (tuple(t.shape), str(t.dtype).removeprefix("torch.")) == (
+            want.shape, want.dtype.name), path
+        name = path.split("/")[-1]
+        if name in ("A_log", "dt_bias", "D_skip"):
+            np.testing.assert_allclose(t.numpy(), want, rtol=1e-6, atol=0, err_msg=path)
+        elif name.startswith(("ln", "gate_norm", "final_norm")) or t.dim() == 1:
+            assert not t.any(), path
+        else:  # fan-in normal
+            std = 1.0 / np.sqrt(t.shape[-2])
+            assert abs(t.float().std().item() / std - 1.0) < 0.1, path

@@ -23,7 +23,7 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 ARCHS = jax_configs.ARCH_IDS
-DENSE = [a for a in ARCHS if jax_configs.get_config(a).family == "dense"]
+PORTED = [a for a in ARCHS if jax_configs.get_config(a).family in ("dense", "hybrid")]
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -77,7 +77,7 @@ def test_shapes_and_arch_list_equal_the_reference():
     }
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_shapes_equal_the_reference(arch):
     for want_cfg, got_cfg in [
         (jax_configs.get_config(arch), port_configs.get_config(arch)),
@@ -87,7 +87,7 @@ def test_param_shapes_equal_the_reference(arch):
         assert got_cfg.param_count() == want_cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
 def test_other_families_raise_until_ported(arch):
     with pytest.raises(NotImplementedError):
         param_shapes(port_configs.get_config(arch).reduced())

@@ -32,6 +32,7 @@ _REQS = [
 ]
 
 DENSE = ["gemma-2b", "minicpm-2b", "musicgen-medium", "nemotron-4-15b", "qwen2-7b"]
+HYBRID = ["zamba2-2.7b"]
 
 
 def _port_engine(cfg, params, **kw):
@@ -57,7 +58,7 @@ def _drive(eng):
     return [r.tokens for r in live]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"] + HYBRID)
 def test_greedy_tokens_equal_the_jax_engine(arch):
     jp, tp = shared_params(jax_config(arch).reduced(), seed=0)
     want = _drive(JaxEngine(jax_config(arch).reduced(), jp,
@@ -69,7 +70,7 @@ def test_greedy_tokens_equal_the_jax_engine(arch):
             assert g == w, f"{arch}: greedy tokens diverge from the JAX engine"
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + HYBRID)
 def test_scheduled_bitwise_matches_isolated(arch):
     cfg = port_config(arch).reduced()
     params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
@@ -151,7 +152,17 @@ def test_submit_rejects_what_cannot_fit():
 def test_carry_is_updated_in_place():
     """The preallocated carry tensors (the JAX engine's donated buffers)
     are written in place, never replaced."""
-    cfg = port_config("gemma-2b").reduced()
+    _check_carry_in_place("gemma-2b")
+
+
+def test_hybrid_carry_is_updated_in_place():
+    """The hybrid carry's conv tails and SSM states (batch on axis 2)
+    are scattered into and stepped in place too."""
+    _check_carry_in_place("zamba2-2.7b")
+
+
+def _check_carry_in_place(arch):
+    cfg = port_config(arch).reduced()
     eng = _port_engine(cfg, init_params(cfg, 9, dtype=torch.float32, device="cpu"))
     before = {k: v for k, v in eng._carry.items() if k != "state"}
     before.update(eng._carry["state"])
@@ -161,6 +172,7 @@ def test_carry_is_updated_in_place():
     after = {k: v for k, v in eng._carry.items() if k != "state"}
     after.update(eng._carry["state"])
     assert {k: v.data_ptr() for k, v in after.items()} == ptrs
+    assert all(v.any() for v in eng._carry["state"].values())  # written, not replaced
     assert len(req.tokens) == 8 and all(0 <= t < cfg.vocab for t in req.tokens)
 
 
