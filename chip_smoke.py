@@ -11,26 +11,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. build: the CUDA kernels compiled from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once).
 3. check: each kernel against its plain PyTorch version on the card, in
-   bf16 and fp32, at both main paths' shapes and at ragged/GQA ones (the
+   bf16 and fp32, at the main paths' shapes and at ragged/GQA ones (the
    SSD scan: y and the final state, with and without pads; flash at
-   zamba2's head_dim 80).
+   zamba2's head_dim 80; the triad at lengths 1 to 2^26, three scalars,
+   and views off a 16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
-   the least time the card needs.
-5. serve: full-width gemma-2b (bf16, random weights from seed 0) through
+   the least time the card needs; the triad at 2^20 (the HPCC config's
+   size) and at 2^26 elements (each array 4x the 50 MB L2).
+5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
+   ``_stream_body``) through ``repro_torch.kernels.ops.triad`` at the HPCC
+   config's ``stream_elems_per_proc`` and at 2^26 fp32 elements: one
+   warm-up call, then 5 reps timed with CUDA events, the median as GiB/s
+   (the paper's unit) and as a share of 3.35 TB/s; the launch counters,
+   zeroed just before and read just after, show 12 triad launches and
+   nothing else.
+6. serve: full-width gemma-2b (bf16, random weights from seed 0) through
    ``ContinuousBatchingEngine``: 8 requests, two arriving mid-decode, one
    sampled at temperature 0.8; the launch counters, zeroed just before
    and read just after, show that every prefill and decode step went
    through the kernels; two greedy requests re-run alone give
    bitwise-equal tokens.
-6. serve_hybrid: the same for full-width zamba2-2.7b (54 Mamba2 layers in
+7. serve_hybrid: the same for full-width zamba2-2.7b (54 Mamba2 layers in
    9 groups, a weight-shared attention block after each): every prefill
    launches the SSD kernel 54 times and flash 9 times, every step
    rmsnorm 127 times.
-7. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
+8. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
    on the card (kernels) and on the CPU (plain versions): prefill and 8
    teacher-forced decode steps give the same logits within tolerance.
-8. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
+9. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
    layers and the shared block), the same way: prefill logits, the conv
    and SSM states, and 8 decode steps.
 
@@ -75,22 +84,48 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # size ~1..5 by ~1e-5; a fault in a kernel moves them by far more.  The
 # same holds for zamba2's one group (reductions of 2560 to 10240 terms).
 PARITY_TOL = 1e-3
+# The triad, elementwise: |got - want| <= 4 eps (|b| + |s| |c|), with
+# eps = 2^-23 at fp32 (its machine epsilon, two units of roundoff) and
+# 2^-8 at bf16 (its unit roundoff, half its epsilon of 2^-7).  Each
+# rounding is off by at most one unit of roundoff u of |b| + |s| |c|.
+# The kernel rounds s * c + b once in fp32 (an FMA), then at bf16 once
+# more to bf16; the plain version rounds s * c and then the sum, in the
+# inputs' dtype.  fp32: 1 + 2 roundings of u = 2^-24, at most 1.5 eps,
+# so 4 eps is 8/3 of the worst case.  bf16: 1 + 2 roundings of u = 2^-8
+# (and the kernel's fp32 FMA, 2^-24), at most 3 + 2^-16 eps, so 4 eps
+# is 4/3 of it.  Where b + s * c cancels to near 0 that is many units of the
+# result, so a bound relative to the result (max_err) would refuse a
+# right kernel.
+TRIAD_EPS = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -8}
+TRIAD_LENGTHS = (1, 7, 1000, 2**20, 2**20 + 37, 2**26)
+TRIAD_SCALES = (3.0, -1.5, 3.5625)
 
+# Each kernel's row of the time phase for the kernels line, and the
+# phases that drive its main path.
 KERNELS = {
     "rmsnorm": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27",
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid"),
     },
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid"),
     },
     "ssd_scan": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid"),
+    },
+    "stream_triad": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/stream_triad.cu",
+        "replaces": "src/repro/kernels/stream_triad.py:25",
+        "time_row": "hpcc_fp32", "paths": ("stream",),
     },
 }
 
@@ -117,6 +152,19 @@ def max_err_scaled(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
     if not bool(torch.isfinite(got).all()) or err > tol * max(1.0, want.abs().max().item()):
         raise AssertionError(f"max abs err {err} over {tol} * max|want|")
     return err
+
+
+def triad_err(got: torch.Tensor, want: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+              s: float) -> tuple[float, float]:
+    """Max |got - want| and its largest ratio to eps (|b| + |s| |c|);
+    raises unless every element is within 4 eps of its terms."""
+    got, want, bf, cf = got.float(), want.float(), b.float(), c.float()
+    diff = (got - want).abs()
+    unit = TRIAD_EPS[b.dtype] * (bf.abs() + abs(s) * cf.abs())
+    if not bool(torch.isfinite(got).all()) or bool((diff > 4 * unit).any()):
+        raise AssertionError(f"triad: max abs err {diff.max().item()} over 4 eps of the terms")
+    ratio = torch.where(unit > 0, diff / unit, torch.zeros_like(diff))
+    return diff.max().item(), ratio.max().item()
 
 
 def device_ms(fn, arg_sets, replays: int = 5) -> float:
@@ -196,9 +244,12 @@ def phase_check() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}  # main shapes, bf16
+    triad_gen = torch.Generator(device="cuda").manual_seed(3)  # leaves gen's draws as they were
+    # main shapes, bf16; the triad at 2^20 fp32
+    errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         tol = KERNEL_TOL[dtype]
@@ -234,9 +285,28 @@ def phase_check() -> dict:
                          "max_abs_state": want_state.abs().max().item()})
             if dtype == torch.bfloat16 and lengths is None:
                 errs["ssd_scan"] = err
+        for n in TRIAD_LENGTHS:
+            # one spare element: [:n] starts on the allocation's 16-byte
+            # boundary, [1:] 4 or 2 bytes past it
+            b, c = ((torch.randn(n + 1, generator=triad_gen, device="cuda") * 2).to(dtype)
+                    for _ in range(2))
+            layouts = {"aligned": (b[:n], c[:n])}
+            if n in (1000, 2**20 + 37):
+                layouts.update(misaligned=(b[1:], c[1:]), mixed=(b[1:], c[:n]))
+            for layout, (bv, cv) in layouts.items():
+                for s in TRIAD_SCALES:
+                    err, units = triad_err(st.stream_triad(bv, cv, s), st.triad_plain(bv, cv, s),
+                                           bv, cv, s)
+                    rows.append({"kernel": "stream_triad", "shape": [n], "dtype": str(dtype),
+                                 "s": s, "layout": layout, "max_abs_err": err,
+                                 "max_err_in_eps_of_terms": units})
+                    if dtype == torch.float32 and n == 2**20 and layout == "aligned":
+                        errs["stream_triad"] = max(errs["stream_triad"], err)
     torch.cuda.synchronize()
     emit("check", tolerance={str(k): v for k, v in KERNEL_TOL.items()},
-         ssd_tolerance={str(k): v for k, v in SSD_TOL.items()}, cases=rows)
+         ssd_tolerance={str(k): v for k, v in SSD_TOL.items()},
+         triad_tolerance={"bound": "4 eps (|b| + |s| |c|)",
+                          "eps": {str(k): v for k, v in TRIAD_EPS.items()}}, cases=rows)
     return errs
 
 
@@ -252,6 +322,7 @@ def phase_time(card: dict) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = {}
@@ -309,6 +380,26 @@ def phase_time(card: dict) -> dict:
         "library_ms": None,  # no single PyTorch call computes the SSD scan
         **_bound(bytes_, flops, BF16_FLOPS),
     }
+
+    # 2^20: the HPCC config's size (and the JAX package's kernel_triad_1M
+    # micro-bench), 24 rotating sets as above.  2^26: each array 256 MiB
+    # (fp32), at least 4x the L2, STREAM's own rule for a valid size; one
+    # fp32 set is 768 MiB, so 3 sets
+    for label, n, dtype, n_sets in (("hpcc_fp32", 2**20, torch.float32, 24),
+                                    ("stream_fp32", 2**26, torch.float32, 3),
+                                    ("stream_bf16", 2**26, torch.bfloat16, 3)):
+        sets = [tuple(torch.randn(n, generator=gen, device="cuda").to(dtype) for _ in range(2))
+                for _ in range(n_sets)]
+        e = sets[0][0].element_size()
+        times[("stream_triad", label)] = {
+            "shape": [n], "dtype": str(dtype).removeprefix("torch."),
+            "ms": device_ms(lambda b, c: st.stream_triad(b, c, 3.0), sets),
+            "plain_ms": device_ms(lambda b, c: st.triad_plain(b, c, 3.0), sets),
+            "library_ms": device_ms(lambda b, c: torch.add(b, c, alpha=3.0), sets),
+            **_bound(3 * e * n, 2 * n, FP32_FLOPS),
+        }
+        del sets
+    torch.cuda.empty_cache()
     emit("time", card=card["nvidia_smi"], kernels=[
         {"kernel": k, "at": label, **v} for (k, label), v in times.items()
     ])
@@ -350,9 +441,10 @@ def _profile_decode(eng, steps: int = 8) -> dict:
 
 
 def _counters():
-    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan, stream_triad
 
-    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "stream_triad": stream_triad}
 
 
 def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
@@ -360,14 +452,75 @@ def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
     rmsnorm twice per layer and once for the head at every step (a hybrid
     layer's ln and gate norm; two per shared block), flash once per
     attention block per prefill, the SSD scan once per Mamba2 layer per
-    prefill."""
+    prefill, the triad never."""
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.hybrid_attn_every
         return {"rmsnorm": (2 * cfg.n_layers + 2 * groups + 1) * (prefill_steps + decode_steps),
                 "flash_attention": groups * prefill_steps,
-                "ssd_scan": cfg.n_layers * prefill_steps}
+                "ssd_scan": cfg.n_layers * prefill_steps, "stream_triad": 0}
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefill_steps + decode_steps),
-            "flash_attention": cfg.n_layers * prefill_steps, "ssd_scan": 0}
+            "flash_attention": cfg.n_layers * prefill_steps, "ssd_scan": 0, "stream_triad": 0}
+
+
+def phase_stream(card: dict, reps: int = 5) -> dict:
+    """The paper's STREAM triad protocol (``benchmarks/hpcc.py``,
+    ``_stream_body``: B and C uniform on [0, 1), s = 1.5, one warm-up call,
+    then ``reps`` timed calls and their median) through the port's entry
+    point ``ops.triad``, on one card, at the HPCC config's size and at
+    2^26 fp32 elements.  Each rep is timed with CUDA events behind a short
+    device sleep, so the window holds the kernel and not the host's
+    enqueue of it."""
+    from repro_torch.configs.hpcc import config as hpcc_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.stream_triad import triad_plain
+
+    s = 1.5
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sizes = (hpcc_config().stream_elems_per_proc, 2**26)
+    inputs = {n: tuple(torch.rand(n, generator=gen, device="cuda") for _ in range(2))
+              for n in sizes}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    runs = {}
+    for n, (b, c) in inputs.items():
+        a = ops.triad(b, c, s)  # warm-up
+        ts = []
+        for _ in range(reps):
+            a = None  # the call reuses a's block: no cudaMalloc inside the window
+            torch.cuda._sleep(200_000)  # ~0.1 ms: the stream waits while the host enqueues
+            start.record()
+            a = ops.triad(b, c, s)
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        runs[n] = (a, ts)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    want = {name: 0 for name in counters}
+    want["stream_triad"] = len(sizes) * (1 + reps)
+    if launches != want:
+        raise AssertionError(f"stream launches {launches}, want {want}")
+
+    rows = []
+    for n, (a, ts) in runs.items():
+        b, c = inputs[n]
+        err, units = triad_err(a, triad_plain(b, c, s), b, c, s)
+        ms = float(np.median(ts))
+        bytes_ = 3 * b.element_size() * n
+        rows.append({"n": n, "dtype": "float32", "s": s, "reps_ms": ts, "median_ms": ms,
+                     "gib_per_s": bytes_ / (ms * 1e-3) / 2**30,
+                     "share_of_3_35_tb_per_s": bytes_ / (ms * 1e-3) / HBM_BYTES_PER_S,
+                     "max_abs_err": err, "max_err_in_eps_of_terms": units,
+                     **_bound(bytes_, 2 * n, FP32_FLOPS)})
+    out = {"card": card["nvidia_smi"], "entry_point": "repro_torch.kernels.ops.triad",
+           "sizes": rows, "launches": launches}
+    emit("stream", **out)
+    del inputs, runs
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dict:
@@ -520,18 +673,22 @@ def main() -> int:
     phase_build()
     errs = phase_check()
     times = phase_time(card)
-    serves = {"serve": phase_serve(card, "gemma-2b", "serve"),
-              "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid")}
+    paths = {"stream": phase_stream(card),
+             "serve": phase_serve(card, "gemma-2b", "serve"),
+             "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid")}
     phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2), "parity")
     phase_parity(dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
                                      hybrid_attn_every=6), "parity_hybrid", s=64, short=37)
 
     kernels = []
     for name, meta in KERNELS.items():
-        t = times[(name, "prefill")]
-        by_path = {path: out["launches"][name] for path, out in serves.items()}
+        t = times[(name, meta["time_row"])]
+        by_path = {path: paths[path]["launches"][name] for path in meta["paths"]}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name}: no launch on its main path {by_path}")
         kernels.append({
-            "name": name, **meta, "launches": sum(by_path.values()),
+            "name": name, **{k: meta[k] for k in ("route", "source", "replaces")},
+            "launches": sum(by_path.values()),
             "launches_by_path": by_path, "at": t["shape"],
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

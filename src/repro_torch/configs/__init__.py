@@ -1,8 +1,9 @@
 """Assigned architectures (10): the port's own copy of ``repro.configs``.
 
 The port imports nothing of the JAX package, so it keeps these copies;
-``tests/test_torch_port.py`` holds each one to its original.  The HPCC
-benchmark config moves over with the benchmarks.
+``tests/test_torch_port.py`` holds each one to its original.  The paper's
+HPCC benchmark config is copied too, as ``configs/hpcc.py``: the STREAM
+probe on the card (``chip_smoke.py``, phase ``stream``) reads its size.
 
 ``get_config("<id>")`` accepts hyphenated public ids (``--arch qwen2-7b``).
 Every entry carries its exact public-literature hyperparameters; smoke

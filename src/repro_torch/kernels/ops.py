@@ -1,12 +1,15 @@
 """Natural-shape wrappers over the kernels, dispatching by device.
 
 The port's ``repro.kernels.ops``: callers pass (..., D) activations,
-(B, S, H, D) attention inputs and the SSD scan's (B, S, H, P) inputs.
+(B, S, H, D) attention inputs, the SSD scan's (B, S, H, P) inputs and
+the triad's flat vectors.
 A CUDA tensor goes to the hand-written kernel (or the wrapper raises); a
 CPU tensor to its plain version.
 Unlike the JAX wrapper nothing is padded or repeated here: the attention
 kernel masks the ragged tail and reads shared kv heads itself, and the
-SSD kernel pre-scales x by dt and takes the cumulative sum itself.
+SSD kernel pre-scales x by dt and takes the cumulative sum itself, and
+the triad kernel does its ragged tail itself (the JAX wrapper pads to
+262144-element tiles).
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ import torch
 from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm
 from .ssd_scan import ssd_scan
+from .stream_triad import stream_triad
 
-__all__ = ["attention", "rmsnorm_op", "ssd"]
+__all__ = ["attention", "rmsnorm_op", "ssd", "triad"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,3 +43,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bm: torch.Tensor
     H, P), and with ``return_state`` also the (B, H, P, N) fp32 state."""
     y, state = ssd_scan(x, dt, a_log, bm, cm, chunk)
     return (y, state) if return_state else y
+
+
+def triad(b: torch.Tensor, c: torch.Tensor, s: float = 3.0) -> torch.Tensor:
+    """STREAM triad ``b + s * c`` over flat vectors of any length."""
+    return stream_triad(b, c, s)

@@ -10,7 +10,14 @@ rounds X, M and both halves of y where the plain version does, so they
 differ where fp32 sums taken in another order land on the other side of
 a bf16 rounding, one bf16 unit (2^-8) of a term of size up to max|y| for
 each of those three roundings: 2^-6 * max|y|.  Its fp32 state is held to
-1e-4 * max|state| at both dtypes.
+1e-4 * max|state| at both dtypes.  The triad is held elementwise to
+4 eps (|b| + |s| |c|), eps = 2^-23 at fp32 (machine epsilon, two units
+of roundoff) and 2^-8 at bf16 (one unit of roundoff): the kernel rounds
+the FMA once in fp32 (at bf16 once more, to bf16), the plain version
+s * c and then the sum in the inputs' dtype, each rounding within one
+unit of roundoff of the terms.  They differ by up to 1.5 eps at fp32
+(4 eps is 8/3 of that) and 3 eps at bf16 (4/3 of it), and the result
+itself can cancel to near 0.
 """
 
 import pytest
@@ -20,6 +27,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.kernels import stream_triad as st  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -130,3 +138,55 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ss.ssd_scan(x, dt, a_log, bm, cm, 64)
     with pytest.raises(ValueError):  # a state wider than 64
         ss.ssd_scan(*_ssd_inputs(g, 1, 64, 2, 64, 128, torch.bfloat16), 64)
+
+
+TRIAD_EPS = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -8}
+
+
+def _within_terms(got, b, c, s):
+    want = st.triad_plain(b, c, s)
+    assert got.dtype == b.dtype and got.shape == b.shape
+    terms = b.float().abs() + abs(s) * c.float().abs()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 4 * TRIAD_EPS[b.dtype] * terms).all()), err.max().item()
+
+
+def _triad_inputs(n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple((torch.randn(n, generator=g, device="cuda") * 2).to(dtype) for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 8, 1000, 31191, 2**20 + 37])
+def test_triad_kernel_matches_plain(cuda, n, dtype):
+    b, c = _triad_inputs(n, dtype, seed=5)
+    for s in (3.0, -1.5, 3.5625):
+        before = st.launches
+        got = st.stream_triad(b, c, s)
+        assert st.launches == before + 1
+        _within_terms(got, b, c, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_triad_kernel_takes_misaligned_views(cuda, dtype):
+    """Views off a 16-byte boundary take the scalar path."""
+    b, c = _triad_inputs(1001, dtype, seed=6)
+    for bv, cv in ((b[1:], c[1:]), (b[1:], c[:-1]), (b[:-1], c[1:])):
+        _within_terms(st.stream_triad(bv, cv, 3.5625), bv, cv, 3.5625)
+
+
+def test_triad_kernel_empty_launches_nothing(cuda):
+    b = torch.empty(0, device=cuda)
+    before = st.launches
+    assert st.stream_triad(b, b, 3.0).shape == (0,)
+    assert st.launches == before
+
+
+def test_triad_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    b = torch.randn(256, device=cuda)
+    with pytest.raises(ValueError):  # stride 2
+        st.stream_triad(b[::2], b[:128], 3.0)
+    with pytest.raises(ValueError):
+        st.stream_triad(b.int(), b.int(), 3.0)
+    with pytest.raises(ValueError):
+        st.stream_triad(b, b.cpu(), 3.0)

@@ -14,8 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro import configs as jax_configs  # noqa: E402
+from repro.configs import hpcc as jax_hpcc  # noqa: E402
 from repro.models.model import param_shapes as jax_param_shapes  # noqa: E402
 from repro_torch import configs as port_configs  # noqa: E402
+from repro_torch.configs import hpcc as port_hpcc  # noqa: E402
 from repro_torch.models import init_params, param_shapes  # noqa: E402
 from repro_torch.serve import ContinuousBatchingEngine, ServeEngine  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
@@ -31,6 +33,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.kernels\n"
         "import repro_torch.models, repro_torch.weights, repro_torch.obs\n"
+        "import repro_torch.configs.hpcc\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"
@@ -66,6 +69,10 @@ def test_configs_equal_the_reference(arch):
     assert got.vocab_padded == want.vocab_padded
     for shape in jax_configs.SHAPES:
         assert port_configs.cell_applicable(got, shape) == jax_configs.cell_applicable(want, shape)
+
+
+def test_hpcc_config_equals_the_reference():
+    assert dataclasses.asdict(port_hpcc.config()) == dataclasses.asdict(jax_hpcc.config())
 
 
 def test_shapes_and_arch_list_equal_the_reference():
@@ -127,7 +134,7 @@ def _code_without_docstrings(path):
 
 
 COPIES = ["models/config.py", "serve/scheduler.py", "obs/metrics.py",
-          "configs/__init__.py"] + [
+          "configs/__init__.py", "configs/hpcc.py"] + [
     f"configs/{a.replace('-', '_').replace('.', '_')}.py" for a in ARCHS
 ]
 
