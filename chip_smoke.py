@@ -13,11 +13,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 3. check: each kernel against its plain PyTorch version on the card, in
    bf16 and fp32, at the main paths' shapes and at ragged/GQA ones (the
    SSD scan: y and the final state, with and without pads; flash at
-   zamba2's head_dim 80; the triad at lengths 1 to 2^26, three scalars,
+   zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
+   head_dims 256 and 80; the triad at lengths 1 to 2^26, three scalars,
    and views off a 16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
-   the least time the card needs; the triad at 2^20 (the HPCC config's
+   the least time the card needs; flash also at S = 4096 for both models
+   (``long_prefill``, ``hybrid_long_prefill``), with its host time per
+   call and its tile's alternatives (query rows a block, K/V stages,
+   packed heads) on the same inputs; the triad at 2^20 (the HPCC config's
    size) and at 2^26 elements (each array 4x the 50 MB L2).
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
    ``_stream_body``) through ``repro_torch.kernels.ops.triad`` at the HPCC
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -193,6 +198,18 @@ def device_ms(fn, arg_sets, replays: int = 5) -> float:
     return start.elapsed_time(end) / (replays * len(arg_sets))
 
 
+def _host_us(fn, arg_sets, calls: int = 200) -> float:
+    """Host time of one ``fn(*args)`` call (argument checks, tensor maps,
+    the launch), enqueued back to back after the stream is idle."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        fn(*arg_sets[i % len(arg_sets)])
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e6 / calls
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -206,19 +223,46 @@ def phase_device() -> dict:
     return info
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_bf16_kernel<256,2>`` from an Itanium-mangled kernel name:
+    the length-prefixed identifiers after ``_Z``/``_ZN`` read in turn up
+    to the one ending in ``_kernel``, with a template's integer arguments."""
+    rest = re.sub(r"^_ZN?", "", mangled)
+    while m := re.match(r"\d+", rest):
+        name, rest = rest[m.end():m.end() + int(m.group())], rest[m.end() + int(m.group()):]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+            return name + (f"<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
+                           if args else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> dict:
+    """Per compiled kernel in an ``nvcc -Xptxas -v`` log: registers a
+    thread and spill bytes, by name (``flash_bf16_kernel<256,2>`` is
+    head_dim 256 with 2 consumer warpgroups), and ptxas's performance
+    warnings."""
+    kernels, warnings, spill, name = {}, [], 0, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            name = _kernel_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores", ln):
+            spill = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            key = name if name not in kernels else f"{name}#{len(kernels)}"  # type arguments
+            kernels[key] = {"registers": int(m.group(1)), "spill_bytes": spill}
+        elif m := re.search(r"Performance Loss: (.*) in the function '([^']+)'", ln):
+            warnings.append(f"{_kernel_name(m.group(2))}: {m.group(1)[:100]}")
+    return {"kernels": kernels, "warnings": warnings}
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     built = _build.build()
-    report = {
-        name: {
-            "seconds": round(b["seconds"], 3),
-            "ptxas": [ln.strip() for ln in b["log"].splitlines()
-                      if "registers" in ln or "spill" in ln],
-        }
-        for name, b in built.items()
-    }
+    report = {name: {"seconds": round(b["seconds"], 3), "ptxas": ptxas_report(b["log"])}
+              for name, b in built.items()}
     emit("build", seconds=round(time.perf_counter() - t0, 3), kernels=report)
 
 
@@ -260,8 +304,9 @@ def phase_check() -> dict:
             rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
             if dtype == torch.bfloat16 and d == 2048:
                 errs["rmsnorm"] = max(errs["rmsnorm"], err)
+        long_ragged = ((1, 2000, 8, 1, 256), (1, 2000, 32, 32, 80)) if dtype == torch.bfloat16 else ()
         for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128),
-                               FLASH80_SHAPE, (2, 100, 4, 2, 80)):
+                               FLASH80_SHAPE, (2, 100, 4, 2, 80), *long_ragged):
             q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
                        for n in (h, kh, kh))
             err = max_err(fa.flash_attention(q, k, v), fa.attention_plain(q, k, v), tol)
@@ -316,10 +361,68 @@ def _bound(bytes_: float, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def phase_time(card: dict) -> dict:
+def time_flash(gen) -> dict:
+    """The flash kernel's rows of the time phase, by label: device times of
+    the kernel, its plain version and SDPA (the yardstick, never on the
+    port's path), host time per call, the bound, and the tile's
+    alternatives on the same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+
+    rows = {}
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True,
+        )
+
+    # the serving shapes (S = 128) and prompts both models serve at S = 4096
+    # (gemma-2b's context is 8192, zamba2-2.7b's 4096); 8 rotating sets of
+    # 20 and 63 MB at S = 4096
+    for label, (b, s, h, kh, d), n_sets in (("prefill", (4, 128, 8, 1, 256), 24),
+                                            ("hybrid_prefill", FLASH80_SHAPE, 24),
+                                            ("long_prefill", (1, 4096, 8, 1, 256), 8),
+                                            ("hybrid_long_prefill", (1, 4096, 32, 32, 80), 8)):
+        sets = [tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      for n in (h, kh, kh)) for _ in range(n_sets)]
+        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
+        flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
+        row = rows[label] = {
+            "shape": [b, s, h, kh, d], "dtype": "bfloat16",
+            "tile": fa.tile_config(b, s, h, kh, d), "blocks": fa.grid_blocks(b, s, h, kh, d),
+            "ms": device_ms(fa.flash_attention, sets),
+            # at S = 4096 the plain version's fp32 logits are 0.5-2 GB a
+            # call: no yardstick, not timed
+            "plain_ms": device_ms(fa.attention_plain, sets) if s <= 128 else None,
+            "library_ms": device_ms(library, sets),
+            "host_us_per_call": _host_us(fa.flash_attention, sets),
+            "library_host_us_per_call": _host_us(library, sets),
+            **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the tile's alternatives on the same inputs: query rows a block,
+        # K/V stages, heads packed (the default pack) or not (1)
+        pack = fa.default_pack(h, kh)
+        row["tiles"] = []
+        for cfg in dict.fromkeys(((64, 2, pack), (64, 3, pack), (128, 2, pack), (128, 3, pack),
+                                  (192, 2, pack), (192, 3, pack), (64, 2, 1), (128, 2, 1))):
+            try:
+                blocks = fa.grid_blocks(b, s, h, kh, d, cfg)
+            except ValueError:  # more stages than shared memory holds, or rows than registers
+                continue
+            row["tiles"].append({"q_rows": cfg[0], "stages": cfg[1], "pack": cfg[2],
+                                 "blocks": blocks,
+                                 "ms": device_ms(lambda *a, c=cfg: fa.flash_attention(*a, config=c),
+                                                 sets)})
+        del sets
+    return rows
+
+
+def phase_time(card: dict) -> dict:
+    import torch.nn.functional as F
+
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import stream_triad as st
@@ -344,25 +447,7 @@ def phase_time(card: dict) -> dict:
             **_bound(2 * m * d * 2 + 4 * d, 4 * m * d, FP32_FLOPS),
         }
 
-    def library(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True,
-        )
-
-    for label, (b, s, h, kh, d) in (("prefill", (4, 128, 8, 1, 256)),
-                                    ("hybrid_prefill", FLASH80_SHAPE)):
-        sets = [tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(torch.bfloat16)
-                      for n in (h, kh, kh)) for _ in range(24)]
-        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
-        flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
-        times[("flash_attention", label)] = {
-            "shape": [b, s, h, kh, d], "dtype": "bfloat16",
-            "ms": device_ms(fa.flash_attention, sets),
-            "plain_ms": device_ms(fa.attention_plain, sets),
-            "library_ms": device_ms(library, sets),
-            **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
-        }
+    times.update({("flash_attention", label): row for label, row in time_flash(gen).items()})
 
     b, s, h, p, n, q = SSD_SHAPE
     sets = [_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16) for _ in range(16)]

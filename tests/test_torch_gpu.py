@@ -62,6 +62,19 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     (1, 64, 4, 4, 64),     # MHA
     (4, 128, 32, 32, 80),  # zamba2-2.7b's shared block: head_dim 80
     (2, 100, 4, 2, 80),    # head_dim 80, ragged S, GQA
+    (1, 1, 8, 1, 256),     # S = 1
+    (1, 1, 32, 32, 80),
+    # S just below and above a q-tile of 64 rows (the default on grids
+    # this small) and of 128, over the packed heads: gemma-2b's 8 -> 8 and
+    # 16 positions, a group of 4 -> 16 and 32, MHA -> 64 and 128
+    (2, 7, 8, 1, 256), (2, 9, 8, 1, 256), (2, 15, 8, 1, 256), (2, 17, 8, 1, 256),
+    (2, 15, 8, 2, 128), (2, 17, 8, 2, 128), (2, 31, 8, 2, 128), (2, 33, 8, 2, 128),
+    (1, 63, 32, 32, 80), (1, 65, 32, 32, 80), (1, 127, 32, 32, 80), (1, 129, 32, 32, 80),
+    (1, 63, 4, 4, 64), (1, 65, 4, 4, 64), (1, 127, 4, 4, 64), (1, 129, 4, 4, 64),
+    # GQA groups of 1, 2, 4 (above) and 8
+    (2, 96, 8, 8, 128), (2, 96, 8, 4, 128), (2, 96, 8, 1, 128),
+    # long and ragged, one per head width
+    (1, 2000, 8, 1, 256), (1, 2000, 8, 2, 128), (1, 2000, 32, 32, 80), (1, 2000, 4, 4, 64),
 ])
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -72,6 +85,30 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal, dtype):
     assert fa.launches == before + 1
     want = fa.attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("q_rows,stages,packed", [
+    (64, 2, True), (64, 3, True), (128, 2, True), (128, 3, True), (192, 2, True),
+    (64, 2, False), (128, 2, False), (192, 2, False),
+])
+@pytest.mark.parametrize("b,s,h,kh,d", [
+    (2, 100, 8, 1, 256), (2, 200, 8, 2, 128), (2, 100, 32, 32, 80), (2, 129, 16, 2, 64),
+])
+def test_flash_kernel_tiles_match_plain(cuda, b, s, h, kh, d, q_rows, stages, packed):
+    """Every tile the wrapper takes (query rows a block, K/V stages, heads
+    packed or not) computes the same attention, causal and not."""
+    config = (q_rows, stages, fa.default_pack(h, kh) if packed else 1)
+    if q_rows not in fa.Q_ROWS[d] or fa.smem_bytes(d, q_rows, stages) > fa.SMEM_LIMIT:
+        with pytest.raises(ValueError):
+            fa.tile_config(b, s, h, kh, d, config)
+        return
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda).to(torch.bfloat16)
+               for n in (h, kh, kh))
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal, config=config)
+        want = fa.attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
