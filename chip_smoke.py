@@ -14,15 +14,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bf16 and fp32, at the main paths' shapes and at ragged/GQA ones (the
    SSD scan: y and the final state, with and without pads; flash at
    zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
-   head_dims 256 and 80; the triad at lengths 1 to 2^26, three scalars,
-   and views off a 16-byte boundary).
+   head_dims 256 and 80 and at gemma-2b's S = 4096 with the time phase's
+   tile; the triad at lengths 1 to 2^26, three scalars, and views off a
+   16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
    the least time the card needs; flash also at S = 4096 for both models
-   (``long_prefill``, ``hybrid_long_prefill``), with its host time per
-   call and its tile's alternatives (query rows a block, K/V stages,
-   packed heads) on the same inputs; the triad at 2^20 (the HPCC config's
-   size) and at 2^26 elements (each array 4x the 50 MB L2).
+   (``long_prefill``, ``hybrid_long_prefill``), with its tile, grid and
+   host time per call; the triad at 2^20 (the HPCC config's size) and at
+   2^26 elements (each array 4x the 50 MB L2).
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
    ``_stream_body``) through ``repro_torch.kernels.ops.triad`` at the HPCC
    config's ``stream_elems_per_proc`` and at 2^26 fp32 elements: one
@@ -291,7 +291,9 @@ def phase_check() -> dict:
     from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    triad_gen = torch.Generator(device="cuda").manual_seed(3)  # leaves gen's draws as they were
+    # the triad's and the long flash cases' own draws leave gen's as they were
+    triad_gen = torch.Generator(device="cuda").manual_seed(3)
+    long_gen = torch.Generator(device="cuda").manual_seed(4)
     # main shapes, bf16; the triad at 2^20 fp32
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
@@ -304,14 +306,20 @@ def phase_check() -> dict:
             rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
             if dtype == torch.bfloat16 and d == 2048:
                 errs["rmsnorm"] = max(errs["rmsnorm"], err)
-        long_ragged = ((1, 2000, 8, 1, 256), (1, 2000, 32, 32, 80)) if dtype == torch.bfloat16 else ()
+        # causal bf16 at long S: ragged at 2000 (64 and 192 rows a block),
+        # and gemma-2b's long_prefill row with its 128-row tile
+        long = (((1, 2000, 8, 1, 256), (1, 2000, 32, 32, 80), (1, 4096, 8, 1, 256))
+                if dtype == torch.bfloat16 else ())
         for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128),
-                               FLASH80_SHAPE, (2, 100, 4, 2, 80), *long_ragged):
-            q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
+                               FLASH80_SHAPE, (2, 100, 4, 2, 80), *long):
+            g = long_gen if s > 1000 else gen
+            q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda").to(dtype)
                        for n in (h, kh, kh))
             err = max_err(fa.flash_attention(q, k, v), fa.attention_plain(q, k, v), tol)
             rows.append({"kernel": "flash_attention", "shape": [b, s, h, kh, d],
-                         "dtype": str(dtype), "max_abs_err": err})
+                         "dtype": str(dtype), "max_abs_err": err,
+                         **({"tile": fa.tile_config(b, s, h, kh, d)}
+                            if dtype == torch.bfloat16 else {})})
             if dtype == torch.bfloat16 and (b, s, h, kh, d) == (4, 128, 8, 1, 256):
                 errs["flash_attention"] = err
         _, _, h, p, n, q = SSD_SHAPE
@@ -364,8 +372,8 @@ def _bound(bytes_: float, flops: float, peak: float) -> dict:
 def time_flash(gen) -> dict:
     """The flash kernel's rows of the time phase, by label: device times of
     the kernel, its plain version and SDPA (the yardstick, never on the
-    port's path), host time per call, the bound, and the tile's
-    alternatives on the same inputs."""
+    port's path), host time per call, the bound, and the tile (query
+    rows a block, packed heads) with its grid."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -402,20 +410,6 @@ def time_flash(gen) -> dict:
             **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        # the tile's alternatives on the same inputs: query rows a block,
-        # K/V stages, heads packed (the default pack) or not (1)
-        pack = fa.default_pack(h, kh)
-        row["tiles"] = []
-        for cfg in dict.fromkeys(((64, 2, pack), (64, 3, pack), (128, 2, pack), (128, 3, pack),
-                                  (192, 2, pack), (192, 3, pack), (64, 2, 1), (128, 2, 1))):
-            try:
-                blocks = fa.grid_blocks(b, s, h, kh, d, cfg)
-            except ValueError:  # more stages than shared memory holds, or rows than registers
-                continue
-            row["tiles"].append({"q_rows": cfg[0], "stages": cfg[1], "pack": cfg[2],
-                                 "blocks": blocks,
-                                 "ms": device_ms(lambda *a, c=cfg: fa.flash_attention(*a, config=c),
-                                                 sets)})
         del sets
     return rows
 

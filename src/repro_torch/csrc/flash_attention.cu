@@ -29,9 +29,10 @@
 //   takes P as the register A operand (the S accumulator rounded to bf16
 //   in registers: its layout is the A layout) and V as an MN-major B.  At
 //   D = 80 that is 5 k16 steps and n80.
-// - A ring of K/V stages (2 or 3), filled by TMA while the consumers run
-//   the products.  K and V have a "full" and an "empty" mbarrier each per
-//   stage: the producer waits on "empty" and starts the copy on "full";
+// - A ring of 2 K/V stages, filled by TMA while the consumers run the
+//   products (3 stages measured no faster, PERF.md).  K and V have a
+//   "full" and an "empty" mbarrier each per stage: the producer waits on
+//   "empty" and starts the copy on "full";
 //   the consumers wait on "full" and release K as soon as its Q K^T is
 //   done and V when its P V is, so the next K streams in under P V.
 //   The tensor maps are 4-D over (D, heads, S, B): the S bound is per
@@ -43,7 +44,8 @@
 //   lands rows in exactly that order), so every head of the group reads
 //   the same stage.  pack is the largest power of two dividing H / KH, at
 //   most 64 (gemma-2b: 8, a block of 128 rows covers 16 positions); each
-//   row's causal limit is its own position.
+//   row's causal limit is its own position.  Unpacked heads measured no
+//   faster at any shape (their repeated K/V reads come from L2).
 // - With one or two consumer warpgroups, the next tile's Q K^T is issued
 //   before this tile's softmax and runs on the tensor cores under it (a
 //   second logits accumulator, 32 registers); its P V then waits for both.
@@ -71,11 +73,10 @@
 //   producer warp cannot give back enough: 9 warps start at 168 too.)
 //   Elsewhere the producer is one warp: a whole warpgroup would hold its
 //   registers for nothing and keep a second block off the SM.
-// The tile (64, 128 or 192 query rows per block), the stage count and
-// the packing are arguments, so they can be measured; the wrapper passes
-// the ones chosen on the card (kernels/flash_attention.py::tile_config,
-// PERF.md).  The host encodes 4 tensor maps per launch (pointers change
-// per call).
+// The query rows a block (64, 128 or 192) are an argument: the wrapper
+// picks them from the grid (kernels/flash_attention.py::tile_config, as
+// measured on the card, PERF.md).  The host encodes 4 tensor maps per
+// launch (pointers change per call).
 //
 // Design (fp32, for the parity checks against the CPU): one warp per
 // query row, FMA dot products reduced by shuffles, the online softmax one
@@ -98,6 +99,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMaxD = 256;
 constexpr int kBK = 64;          // keys per K/V stage
+constexpr int kStages = 2;       // depth of the K/V ring
 constexpr int kWG = 128;         // threads of a warpgroup; 64 query rows each
 constexpr int kMaxSmem = 232448; // a block's shared memory on an H100
 constexpr float kLog2e = 1.4426950408889634f;
@@ -361,9 +363,9 @@ __host__ __device__ constexpr int q_bytes(int ncw) { return ncw * 64 * D * 2; }
 template <int D>
 __host__ __device__ constexpr int kv_bytes() { return kBK * D * 2; }
 template <int D>
-__host__ __device__ constexpr int smem_bytes(int ncw, int stages) {
+__host__ __device__ constexpr int smem_bytes(int ncw) {
   // + the barriers, + slack to align the base to 1024 bytes
-  return q_bytes<D>(ncw) + 2 * stages * kv_bytes<D>() + 8 * (1 + 4 * stages) + 1024;
+  return q_bytes<D>(ncw) + 2 * kStages * kv_bytes<D>() + 8 * (1 + 4 * kStages) + 1024;
 }
 
 // Only the D = 256 two-warpgroup block moves registers (see the note); the
@@ -378,7 +380,7 @@ template <int D, int NCW>
 __global__ void __launch_bounds__(block_threads(D, NCW), 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                  int S, int G, int pack_log2, int head_groups, int stages, float scale_log2,
+                  int S, int G, int pack_log2, int head_groups, float scale_log2,
                   int causal) {
   using T = Tile<D>;
   constexpr int QB = q_bytes<D>(NCW), KVB = kv_bytes<D>();
@@ -392,13 +394,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* const smem = smem_raw + (base - raw);
-  const uint32_t sq = base, sk = base + QB, sv = sk + stages * KVB;
-  const uint32_t bars = sv + stages * KVB;
+  const uint32_t sq = base, sk = base + QB, sv = sk + kStages * KVB;
+  const uint32_t bars = sv + kStages * KVB;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + stages + s); };
-  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * stages + s); };
-  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * stages + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
 
   const int b = blockIdx.x / head_groups;
   const int h0 = (blockIdx.x % head_groups) << pack_log2;
@@ -410,7 +412,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < stages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(k_empty(s), NCW * kWG);
@@ -429,8 +431,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
       for (int c = 0; c < T::NC; ++c) tma_load(sq + c * QREG, tq, q_full, c * T::CH, h0, p0, b);
       for (int t = 0; t < n_kv; ++t) {
-        const int s = t % stages;
-        const int free = ((t / stages) & 1) ^ 1;  // the first round passes
+        const int s = t % kStages;
+        const int free = ((t / kStages) & 1) ^ 1;  // the first round passes
         mbar_wait(k_empty(s), free);
         mbar_expect(k_full(s), KVB);
 #pragma unroll
@@ -484,14 +486,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       mbar_arrive(k_empty(0));
     }
     for (int t = 0; t < n_kv; ++t) {
-      const int s = t % stages, phase = (t / stages) & 1;
+      const int s = t % kStages, phase = (t / kStages) & 1;
       const int k0 = t * kBK;
       const uint32_t vs = sv + s * KVB;
       if constexpr (kOverlap) {
         // the next tile's Q K^T runs on the tensor cores during this softmax
         if (t + 1 < n_kv) {
-          mbar_wait(k_full((t + 1) % stages), ((t + 1) / stages) & 1);
-          issue_qk(sn, (t + 1) % stages);
+          mbar_wait(k_full((t + 1) % kStages), ((t + 1) / kStages) & 1);
+          issue_qk(sn, (t + 1) % kStages);
         }
       } else {
         mbar_wait(k_full(s), phase);
@@ -567,7 +569,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       mbar_arrive(v_empty(s));  // this thread is done with V of stage s
       if constexpr (kOverlap) {
         fence_regs(sn);
-        if (t + 1 < n_kv) mbar_arrive(k_empty((t + 1) % stages));  // and K of the next
+        if (t + 1 < n_kv) mbar_arrive(k_empty((t + 1) % kStages));  // and K of the next
 #pragma unroll
         for (int i = 0; i < 32; ++i) sc[i] = sn[i];
       }
@@ -652,17 +654,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int bo
 
 template <int D, int NCW>
 cudaError_t launch_bf16_tiled(const void* q, const void* k, const void* v, void* o, int B,
-                              int S, int H, int KH, float scale, int causal, int stages,
-                              int pack, cudaStream_t st) {
-  const int bytes = smem_bytes<D>(NCW, stages);
+                              int S, int H, int KH, float scale, int causal,
+                              cudaStream_t st) {
+  constexpr int bytes = smem_bytes<D>(NCW);
+  static_assert(bytes <= kMaxSmem, "Q and the K/V ring overflow shared memory");
+  // pack: the largest power of two dividing the group H / KH, at most 64
+  const int G = H / KH;
   int pack_log2 = 0;
-  while ((1 << pack_log2) < pack) ++pack_log2;
-  const int G = H / KH, positions = (NCW * 64) / pack;
+  while (pack_log2 < 6 && G % (2 << pack_log2) == 0) ++pack_log2;
+  const int pack = 1 << pack_log2, positions = (NCW * 64) / pack;
   const int64_t tiles = (S + positions - 1) / positions, groups = (int64_t)B * (H / pack);
-  if (stages < 2 || bytes > kMaxSmem || pack < 1 || (1 << pack_log2) != pack || G % pack ||
-      pack > 64 || tiles > 65535 || groups > 0x7fffffff) {
-    return cudaErrorInvalidValue;
-  }
+  if (tiles > 65535 || groups > 0x7fffffff) return cudaErrorInvalidValue;
   static bool granted = false;
   if (!granted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -678,21 +680,18 @@ cudaError_t launch_bf16_tiled(const void* q, const void* k, const void* v, void*
   }
   const dim3 grid((unsigned)groups, (unsigned)tiles);
   flash_bf16_kernel<D, NCW><<<grid, block_threads(D, NCW), bytes, st>>>(
-      tq, tk, tv, to, S, G, pack_log2, H / pack, stages, scale * kLog2e, causal);
+      tq, tk, tv, to, S, G, pack_log2, H / pack, scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int KH, float scale, int causal, int q_rows, int stages,
-                        int pack, cudaStream_t st) {
-  if (q_rows == 64)
-    return launch_bf16_tiled<D, 1>(q, k, v, o, B, S, H, KH, scale, causal, stages, pack, st);
-  if (q_rows == 128)
-    return launch_bf16_tiled<D, 2>(q, k, v, o, B, S, H, KH, scale, causal, stages, pack, st);
+                        int H, int KH, float scale, int causal, int q_rows, cudaStream_t st) {
+  if (q_rows == 64) return launch_bf16_tiled<D, 1>(q, k, v, o, B, S, H, KH, scale, causal, st);
+  if (q_rows == 128) return launch_bf16_tiled<D, 2>(q, k, v, o, B, S, H, KH, scale, causal, st);
   if constexpr (D <= 80) {  // three warpgroups fit the register file only here
     if (q_rows == 192)
-      return launch_bf16_tiled<D, 3>(q, k, v, o, B, S, H, KH, scale, causal, stages, pack, st);
+      return launch_bf16_tiled<D, 3>(q, k, v, o, B, S, H, KH, scale, causal, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -752,14 +751,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // q, o: (B, S, H, D); k, v: (B, S, KH, D); all contiguous, one dtype
 // (0 = float32, 1 = bfloat16).  H % KH == 0; D <= 256 in fp32, D in
 // {64, 80, 128, 256} in bf16 with 16-byte aligned pointers.  bf16 only:
-// q_rows (64 or 128 query rows a block), stages (K/V ring depth, 2 or
-// more while shared memory holds them) and pack (query heads packed into
-// a block's rows: a power of two dividing H / KH, at most 64).  Returns a
-// cudaError_t (0 = launched).
+// q_rows, the query rows a block (64 or 128; 192 at D 64 and 80).
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int H, int KH, int d, int causal,
-                                      int dtype, int q_rows, int stages, int pack,
-                                      void* stream) {
+                                      int dtype, int q_rows, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || d <= 0 || d > kMaxD ||
       B > 65535 || H > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -769,17 +765,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 1) {
     switch (d) {
       case 64:
-        return (int)launch_bf16<64>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, stages,
-                                    pack, st);
+        return (int)launch_bf16<64>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
       case 80:
-        return (int)launch_bf16<80>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, stages,
-                                    pack, st);
+        return (int)launch_bf16<80>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
       case 128:
-        return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, stages,
-                                     pack, st);
+        return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
       case 256:
-        return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, stages,
-                                     pack, st);
+        return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -8,12 +8,12 @@ raises; on CPU tensors it runs ``attention_plain``.  Both read kv head
 ``h // (H // KH)`` for query head ``h``; neither repeats heads.
 
 In bf16 a launch has a tile: query rows per block (one consumer
-warpgroup each 64: 64 or 128, and 192 at head_dim 64 and 80), K/V ring
-stages, and the query heads of a kv group packed into a block's rows.
-``tile_config`` resolves and checks it.  The default, chosen by
-measurement on the card (``PERF.md``): heads packed, 2 stages, and the
-most rows whose grid still has a block for each of the card's SMs, else
-64 (a serving prompt of 128 tokens gives too few blocks for more).
+warpgroup each 64: 64 or 128, and 192 at head_dim 64 and 80) over the
+query heads of a kv group packed into a block's rows (``default_pack``,
+which the kernel works out the same way).  ``tile_config`` picks the
+rows, as measured on the card (``PERF.md``): the most whose grid still
+has a block for each of the card's SMs, else 64 (a serving prompt of
+128 tokens gives too few blocks for more).
 """
 
 from __future__ import annotations
@@ -31,15 +31,11 @@ launches = 0  # kernel launches so far; chip_smoke.py zeroes and reads it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 BF16_HEAD_DIMS = (64, 80, 128, 256)  # the kernel's compiled tile widths
-STAGES = 2  # K/V ring depth of the default tile
 # query rows a block may have, by head_dim: one consumer warpgroup per 64;
 # three fit the register file only at the narrow widths
 Q_ROWS = {64: (64, 128, 192), 80: (64, 128, 192), 128: (64, 128), 256: (64, 128)}
 SMS = 132  # streaming multiprocessors of an H100
-KV_TILE = 64  # keys per K/V stage
 MAX_PACK = 64  # query heads packed into one block's rows
-SMEM_LIMIT = 232448  # shared memory a block may hold on an H100
-MAX_GRID_Y = 65535  # q-tiles of one launch
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,15 +59,10 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
-def smem_bytes(d: int, q_rows: int, stages: int) -> int:
-    """Shared memory of a bf16 block: Q, the K/V ring, its barriers and
-    the slack that aligns the base to 1024 bytes (as the kernel lays it)."""
-    return q_rows * d * 2 + 2 * stages * KV_TILE * d * 2 + 8 * (1 + 4 * stages) + 1024
-
-
 def default_pack(h: int, kh: int) -> int:
     """The largest power of two that divides the group H / KH, at most
-    ``MAX_PACK``: every query head of a packed block reads the same K/V."""
+    ``MAX_PACK``, as the kernel packs them: every query head of a packed
+    block reads the same K/V."""
     group, pack = h // kh, 1
     while pack < MAX_PACK and group % (2 * pack) == 0:
         pack *= 2
@@ -82,39 +73,22 @@ def _blocks(b: int, s: int, h: int, q_rows: int, pack: int) -> int:
     return b * (h // pack) * -(-s // (q_rows // pack))
 
 
-def tile_config(b: int, s: int, h: int, kh: int, d: int,
-                config: tuple[int, int, int] | None = None) -> tuple[int, int, int]:
-    """(q_rows, stages, pack) of a bf16 launch: ``config`` or the default
-    (``default_pack``, ``STAGES``, the most rows of ``Q_ROWS[d]`` whose
-    grid has at least ``SMS`` blocks, else 64); raises ValueError on a
-    tile the kernel does not take."""
+def tile_config(b: int, s: int, h: int, kh: int, d: int) -> tuple[int, int]:
+    """(q_rows, pack) of a bf16 launch: the most rows of ``Q_ROWS[d]``
+    whose grid has at least ``SMS`` blocks, else the fewest, over
+    ``default_pack`` heads; raises ValueError at a head_dim with no bf16
+    tile."""
     if d not in BF16_HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {d} has no bf16 tile")
-    if config is None:
-        pack = default_pack(h, kh)
-        rows = [r for r in Q_ROWS[d] if _blocks(b, s, h, r, pack) >= SMS]
-        config = (max(rows, default=min(Q_ROWS[d])), STAGES, pack)
-    q_rows, stages, pack = config
-    if q_rows not in Q_ROWS[d]:
-        raise ValueError(f"flash_attention: {q_rows} query rows a block at head_dim {d} "
-                         f"(one of {Q_ROWS[d]})")
-    if stages < 2 or smem_bytes(d, q_rows, stages) > SMEM_LIMIT:
-        raise ValueError(f"flash_attention: {stages} K/V stages at head_dim {d} and "
-                         f"{q_rows} rows (2 or more, {SMEM_LIMIT} bytes of shared memory)")
-    if pack < 1 or pack & (pack - 1) or (h // kh) % pack or pack > MAX_PACK:
-        raise ValueError(f"flash_attention: pack {pack} (a power of two dividing "
-                         f"H / KH = {h // kh}, at most {MAX_PACK})")
-    if -(-s // (q_rows // pack)) > MAX_GRID_Y:
-        raise ValueError(f"flash_attention: S {s} needs more than {MAX_GRID_Y} q-tiles")
-    return q_rows, stages, pack
+    pack = default_pack(h, kh)
+    rows = [r for r in Q_ROWS[d] if _blocks(b, s, h, r, pack) >= SMS]
+    return max(rows, default=min(Q_ROWS[d])), pack
 
 
-def grid_blocks(b: int, s: int, h: int, kh: int, d: int,
-                config: tuple[int, int, int] | None = None) -> int:
+def grid_blocks(b: int, s: int, h: int, kh: int, d: int) -> int:
     """Blocks of a bf16 launch: one per (q-tile, packed head group, batch
     row), each q-tile q_rows / pack positions."""
-    q_rows, _, pack = tile_config(b, s, h, kh, d, config)
-    return _blocks(b, s, h, q_rows, pack)
+    return _blocks(b, s, h, *tile_config(b, s, h, kh, d))
 
 
 @functools.cache
@@ -123,8 +97,7 @@ def _launcher():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -155,11 +128,8 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, *,
-                    config: tuple[int, int, int] | None = None) -> torch.Tensor:
-    """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values.
-    ``config`` (q_rows, stages, pack) overrides the bf16 kernel's tile,
-    for measuring the alternatives; the plain version ignores it."""
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values."""
     devices = {t.device for t in (q, k, v)}
     if devices == {torch.device("cpu")}:
         return attention_plain(q, k, v, causal)
@@ -168,14 +138,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     b, s, h, d = q.shape
     kh = k.shape[2]
-    tile = tile_config(b, s, h, kh, d, config) if q.dtype == torch.bfloat16 else (0, 0, 0)
+    q_rows = tile_config(b, s, h, kh, d)[0] if q.dtype == torch.bfloat16 else 0
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     global launches
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, kh, d, int(causal), _DTYPES[q.dtype], *tile,
+        b, s, h, kh, d, int(causal), _DTYPES[q.dtype], q_rows,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

@@ -87,26 +87,26 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, d, causal, dtype):
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("q_rows,stages,packed", [
-    (64, 2, True), (64, 3, True), (128, 2, True), (128, 3, True), (192, 2, True),
-    (64, 2, False), (128, 2, False), (192, 2, False),
+@pytest.mark.parametrize("b,s,h,kh,d,q_rows", [
+    # shapes where the default tile takes each kernel (query rows a block
+    # at each head width, heads packed or not), ragged, and long enough
+    # that the 2-stage K/V ring wraps (S / 64 kv tiles > 2)
+    (2, 300, 8, 1, 256, 64), (2, 1100, 8, 1, 256, 128), (2, 300, 32, 32, 256, 128),
+    (2, 300, 8, 2, 128, 64), (2, 1100, 8, 2, 128, 128), (2, 300, 32, 32, 128, 128),
+    (2, 300, 4, 2, 80, 64), (1, 300, 64, 64, 80, 128), (2, 400, 32, 32, 80, 192),
+    (2, 300, 16, 2, 64, 64), (1, 300, 64, 64, 64, 128), (2, 400, 32, 32, 64, 192),
+    (4, 1000, 16, 2, 64, 192),
 ])
-@pytest.mark.parametrize("b,s,h,kh,d", [
-    (2, 100, 8, 1, 256), (2, 200, 8, 2, 128), (2, 100, 32, 32, 80), (2, 129, 16, 2, 64),
-])
-def test_flash_kernel_tiles_match_plain(cuda, b, s, h, kh, d, q_rows, stages, packed):
-    """Every tile the wrapper takes (query rows a block, K/V stages, heads
-    packed or not) computes the same attention, causal and not."""
-    config = (q_rows, stages, fa.default_pack(h, kh) if packed else 1)
-    if q_rows not in fa.Q_ROWS[d] or fa.smem_bytes(d, q_rows, stages) > fa.SMEM_LIMIT:
-        with pytest.raises(ValueError):
-            fa.tile_config(b, s, h, kh, d, config)
-        return
+def test_flash_kernel_tiles_match_plain(cuda, b, s, h, kh, d, q_rows):
+    """Every bf16 kernel the wrapper picks (64, 128 or 192 query rows a
+    block, packed heads or not) computes the same attention, causal and
+    not, over a K/V ring that is reused."""
+    assert fa.tile_config(b, s, h, kh, d)[0] == q_rows
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda).to(torch.bfloat16)
                for n in (h, kh, kh))
     for causal in (True, False):
-        got = fa.flash_attention(q, k, v, causal=causal, config=config)
+        got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
 

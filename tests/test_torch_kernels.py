@@ -127,12 +127,19 @@ def test_flash_default_pack(h, kh, pack):
 @pytest.mark.parametrize("shape,tile,blocks", [
     # the time phase's rows on a 132-SM card: 64 rows where more would
     # leave SMs idle, else the most rows the head width takes
-    ((4, 128, 8, 1, 256), (64, 2, 8), 64),
-    ((4, 128, 32, 32, 80), (64, 2, 1), 256),
-    ((1, 4096, 8, 1, 256), (128, 2, 8), 256),
-    ((1, 4096, 32, 32, 80), (192, 2, 1), 704),
-    ((1, 2000, 8, 2, 128), (64, 2, 4), 2 * 125),  # 128 rows: 126 blocks
-    ((2, 7, 8, 1, 256), (64, 2, 8), 2),
+    ((4, 128, 8, 1, 256), (64, 8), 64),
+    ((4, 128, 32, 32, 80), (64, 1), 256),
+    ((1, 4096, 8, 1, 256), (128, 8), 256),
+    ((1, 4096, 32, 32, 80), (192, 1), 704),
+    ((1, 2000, 8, 2, 128), (64, 4), 2 * 125),  # 128 rows: 126 blocks
+    ((2, 7, 8, 1, 256), (64, 8), 2),
+    # the gpu tile tests' shapes: each kernel is the default somewhere
+    ((2, 1100, 8, 1, 256), (128, 8), 2 * 69),
+    ((2, 300, 32, 32, 256), (128, 1), 2 * 32 * 3),
+    ((1, 300, 64, 64, 80), (128, 1), 64 * 3),  # 192 rows: 128 blocks
+    ((2, 400, 32, 32, 80), (192, 1), 2 * 32 * 3),
+    ((2, 300, 16, 2, 64), (64, 8), 2 * 2 * 38),
+    ((4, 1000, 16, 2, 64), (192, 8), 4 * 2 * 42),
 ])
 def test_flash_default_tile_and_grid(shape, tile, blocks):
     b, s, h, kh, d = shape
@@ -140,32 +147,17 @@ def test_flash_default_tile_and_grid(shape, tile, blocks):
     assert flash_attention.grid_blocks(b, s, h, kh, d) == blocks
 
 
-@pytest.mark.parametrize("d,config", [
-    (256, (192, 2, 8)),   # three warpgroups only at head_dim 64 and 80
-    (80, (96, 2, 1)),     # rows come in warpgroups of 64
-    (256, (128, 1, 8)),   # a ring needs 2 stages
-    (256, (128, 3, 8)),   # 3 stages of 64 x 256 K and V overflow shared memory
-    (256, (64, 2, 3)),    # pack is a power of two
-    (256, (64, 2, 16)),   # that divides the group of 8
-    (24, None),           # no bf16 tile at head_dim 24
-])
-def test_flash_tile_config_refuses(d, config):
-    with pytest.raises(ValueError):
-        flash_attention.tile_config(1, 128, 8, 1, d, config)
+@pytest.mark.parametrize("d", [16, 24, 96, 512])
+def test_flash_tile_config_refuses(d):
+    with pytest.raises(ValueError):  # no bf16 tile at this head_dim
+        flash_attention.tile_config(1, 128, 8, 1, d)
 
 
-def test_flash_smem_bytes_match_the_kernel_layout():
-    # Q (128 x 256), 2 stages of K and V (64 x 256 each), 9 barriers, 1 KB
-    # of alignment slack; 3 stages at 64 rows still fit 227 KB
-    assert flash_attention.smem_bytes(256, 128, 2) == 65536 + 131072 + 72 + 1024
-    assert flash_attention.smem_bytes(256, 64, 3) <= flash_attention.SMEM_LIMIT
-    assert flash_attention.tile_config(1, 128, 8, 1, 256, (64, 3, 8)) == (64, 3, 8)
-
-
-def test_flash_config_leaves_the_plain_version_alone():
+def test_flash_cpu_bf16_takes_the_plain_version_at_any_head_dim():
+    # on CPU tensors no tile is resolved: head_dim 16 has none in bf16
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 20, n, 16)).astype(np.float32))
-               for n in (4, 2, 2))
+               .to(torch.bfloat16) for n in (4, 2, 2))
     want = flash_attention.attention_plain(q, k, v)
-    got = flash_attention.flash_attention(q, k, v, config=(64, 2, 2))
+    got = flash_attention.flash_attention(q, k, v)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
