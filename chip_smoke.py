@@ -11,16 +11,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 2. build: the CUDA kernels compiled from ``src/repro_torch/csrc`` (nvcc,
    sm_90a, one process per source, all at once).
 3. check: each kernel against its plain PyTorch version on the card, in
-   bf16 and fp32, at the main paths' shapes and at ragged/GQA ones (the
-   SSD scan: y and the final state, with and without pads; flash at
-   zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
+   bf16 and fp32, at the main paths' shapes and at ragged/GQA ones
+   (rmsnorm: also a view off a 16-byte boundary, and each row bitwise
+   equal alone and among 4, 7 or 512 rows at widths 2048, 2560, 5120
+   and 100; the SSD scan: y and the final state, with and without pads;
+   flash at zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
    head_dims 256 and 80 and at gemma-2b's S = 4096 with the time phase's
    tile; the triad at lengths 1 to 2^26, three scalars, and views off a
    16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
-   the least time the card needs; flash also at S = 4096 for both models
-   (``long_prefill``, ``hybrid_long_prefill``), with its tile, grid and
+   the least time the card needs; rmsnorm at the five shapes the serve
+   paths run, each beside an empty kernel of its grid and block
+   (``floor_ms``) and with its layout; flash also at S = 4096 for both
+   models (``long_prefill``, ``hybrid_long_prefill``), with its tile, grid and
    host time per call; the triad at 2^20 (the HPCC config's size) and at
    2^26 elements (each array 4x the 50 MB L2).
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
@@ -226,14 +230,25 @@ def phase_device() -> dict:
 def _kernel_name(mangled: str) -> str:
     """``flash_bf16_kernel<256,2>`` from an Itanium-mangled kernel name:
     the length-prefixed identifiers after ``_Z``/``_ZN`` read in turn up
-    to the one ending in ``_kernel``, with a template's integer arguments."""
+    to the one ending in ``_kernel``, with a template's arguments
+    (integers, bools as 0/1, ``float`` and named types such as
+    ``__nv_bfloat16``)."""
     rest = re.sub(r"^_ZN?", "", mangled)
     while m := re.match(r"\d+", rest):
         name, rest = rest[m.end():m.end() + int(m.group())], rest[m.end() + int(m.group()):]
         if name.endswith("_kernel"):
-            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
-            return name + (f"<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
-                           if args else "")
+            if not rest.startswith("I"):
+                return name
+            args, rest = [], rest[1:]
+            while m := re.match(r"L[ib](-?\d+)E|f|(\d+)", rest):
+                if m.group(2):  # a named type: its length, then the name
+                    n = int(m.group(2))
+                    args.append(rest[m.end():m.end() + n])
+                    rest = rest[m.end() + n:]
+                    continue
+                args.append(m.group(1) or "float")
+                rest = rest[m.end():]
+            return f"{name}<{','.join(args)}>"
     return mangled
 
 
@@ -291,9 +306,11 @@ def phase_check() -> dict:
     from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # the triad's and the long flash cases' own draws leave gen's as they were
+    # the triad's, the long flash cases' and the rmsnorm row-independence
+    # and misaligned cases' own draws leave gen's as they were
     triad_gen = torch.Generator(device="cuda").manual_seed(3)
     long_gen = torch.Generator(device="cuda").manual_seed(4)
+    rows_gen = torch.Generator(device="cuda").manual_seed(5)
     # main shapes, bf16; the triad at 2^20 fp32
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
@@ -306,6 +323,20 @@ def phase_check() -> dict:
             rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
             if dtype == torch.bfloat16 and d == 2048:
                 errs["rmsnorm"] = max(errs["rmsnorm"], err)
+        for m, d in ((4, 2560), (1, 2048)):
+            x = torch.randn(m, d, generator=rows_gen, device="cuda").to(dtype)
+            w = torch.randn(d, generator=rows_gen, device="cuda") * 0.2
+            err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), tol)
+            rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
+        for d in RMS_WIDTHS:
+            rows.append({"kernel": "rmsnorm", "shape": [512, d], "dtype": str(dtype),
+                         **rms_rows_alone(rn, rows_gen, d, dtype)})
+        # a view one element past a 16-byte boundary: the scalar path
+        x = torch.randn(4 * 2048 + 1, generator=rows_gen, device="cuda").to(dtype)[1:].view(4, 2048)
+        w = torch.randn(2048, generator=rows_gen, device="cuda") * 0.2
+        err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), tol)
+        rows.append({"kernel": "rmsnorm", "shape": [4, 2048], "dtype": str(dtype),
+                     "view": "misaligned", "max_abs_err": err})
         # causal bf16 at long S: ragged at 2000 (64 and 192 rows a block),
         # and gemma-2b's long_prefill row with its 128-row tile
         long = (((1, 2000, 8, 1, 256), (1, 2000, 32, 32, 80), (1, 4096, 8, 1, 256))
@@ -363,6 +394,32 @@ def phase_check() -> dict:
     return errs
 
 
+# rmsnorm's widths in the serve paths (gemma-2b's d_model, zamba2-2.7b's
+# d_model and d_inner) and 100: in bf16 not a multiple of 16 bytes (the
+# scalar path), in fp32 the generic vector instance
+RMS_WIDTHS = (2048, 2560, 5120, 100)
+RMS_ALONE = (0, 3, 6, 511)  # rows computed alone
+
+
+def rms_rows_alone(rn, gen, d: int, dtype) -> dict:
+    """Each row of ``RMS_ALONE``, normalised alone (a fresh 1-row
+    tensor), is bitwise equal to the same row among the first M of 512
+    rows, M in 4, 7 and 512, and those batches to the first M rows of
+    the 512; raises if not.  Also holds the 512 rows to the plain version."""
+    x = torch.randn(512, d, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(d, generator=gen, device="cuda") * 0.2
+    full = rn.rmsnorm(x, w)
+    for m in (4, 7, 512):
+        got = rn.rmsnorm(x[:m], w)
+        if not torch.equal(got, full[:m]):
+            raise AssertionError(f"rmsnorm d {d} {dtype}: rows of M = {m} differ from M = 512")
+        for i in RMS_ALONE:
+            if i < m and not torch.equal(rn.rmsnorm(x[i:i + 1].clone(), w)[0], got[i]):
+                raise AssertionError(f"rmsnorm d {d} {dtype}: row {i} alone differs from M = {m}")
+    return {"rows_alone": list(RMS_ALONE), "batches": [4, 7, 512], "bitwise_equal": True,
+            "max_abs_err": max_err(full, rn.rmsnorm_plain(x, w), KERNEL_TOL[dtype])}
+
+
 def _bound(bytes_: float, flops: float, peak: float) -> dict:
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
     return {"bytes": bytes_, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -414,32 +471,65 @@ def time_flash(gen) -> dict:
     return rows
 
 
-def phase_time(card: dict) -> dict:
+# rmsnorm's time rows: every shape the serve paths run, bf16 (gemma-2b
+# at d_model 2048; zamba2-2.7b at d_model 2560 and its gate norm at
+# d_inner 5120), prefill of 4 slots x 128 and decode of 4 slots
+RMS_ROWS = (("prefill", 512, 2048), ("decode", 4, 2048), ("hybrid_gate_prefill", 512, 5120),
+            ("hybrid_decode", 4, 2560), ("hybrid_gate_decode", 4, 5120))
+
+
+def rms_sets(gen, m: int, d: int, n: int = 24, dtype=torch.bfloat16) -> list:
+    """``n`` rotating (x, w) sets, one w for all."""
+    w = torch.randn(d, generator=gen, device="cuda") * 0.2
+    return [(torch.randn(m, d, generator=gen, device="cuda").to(dtype), w) for _ in range(n)]
+
+
+def rms_bound(m: int, d: int, dtype) -> dict:
+    e = torch.finfo(dtype).bits // 8
+    return _bound(2 * m * d * e + 4 * d, 4 * m * d, FP32_FLOPS)
+
+
+def rms_floor_ms(rn, blocks: int, threads: int, n: int = 24) -> float:
+    """Device time of an empty kernel of ``blocks`` x ``threads``, timed
+    as ``device_ms`` times a kernel: a launch's floor at that grid."""
+    dev = torch.device("cuda")
+    return device_ms(lambda: rn.floor_launch(blocks, threads, dev), [()] * n)
+
+
+def time_rmsnorm(gen) -> dict:
+    """rmsnorm's rows of the time phase, by label: device times of the
+    kernel, its plain version and ``F.rms_norm`` (the yardstick, never on
+    the port's path), the empty kernel of the same grid and block
+    (``floor_ms``), the bound, and the kernel's layout."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rn
+
+    rows = {}
+    for label, m, d in RMS_ROWS:
+        sets = rms_sets(gen, m, d)
+        lib_sets = [(x, (1.0 + w).to(x.dtype)) for x, w in sets]
+        lay = rn.layout(d, torch.bfloat16)  # one block a row
+        row = rows[label] = {
+            "shape": [m, d], "dtype": "bfloat16", "layout": lay,
+            "ms": device_ms(rn.rmsnorm, sets),
+            "plain_ms": device_ms(rn.rmsnorm_plain, sets),
+            "library_ms": device_ms(lambda x, w1, d=d: F.rms_norm(x, (d,), w1, 1e-5), lib_sets),
+            "floor_ms": rms_floor_ms(rn, m, lay["threads_per_row"]),
+            **rms_bound(m, d, torch.bfloat16),
+        }
+        row.update(bound_share=row["bound_ms"] / row["ms"],
+                   ms_minus_floor=row["ms"] - row["floor_ms"],
+                   ms_minus_bound=row["ms"] - row["bound_ms"])
+    return rows
+
+
+def phase_time(card: dict) -> dict:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    times = {}
-
-    def rms_sets(m, d, n):
-        w = torch.randn(d, generator=gen, device="cuda") * 0.2
-        return [(torch.randn(m, d, generator=gen, device="cuda").to(torch.bfloat16), w)
-                for _ in range(n)]
-
-    for label, m, d in (("prefill", 512, 2048), ("decode", 4, 2048),
-                        ("hybrid_gate_prefill", 512, 5120)):
-        sets = rms_sets(m, d, 24)
-        lib_sets = [(x, (1.0 + w).to(x.dtype)) for x, w in sets]
-        times[("rmsnorm", label)] = {
-            "shape": [m, d], "dtype": "bfloat16",
-            "ms": device_ms(rn.rmsnorm, sets),
-            "plain_ms": device_ms(rn.rmsnorm_plain, sets),
-            "library_ms": device_ms(lambda x, w1, d=d: F.rms_norm(x, (d,), w1, 1e-5), lib_sets),
-            **_bound(2 * m * d * 2 + 4 * d, 4 * m * d, FP32_FLOPS),
-        }
+    times = {("rmsnorm", label): row for label, row in time_rmsnorm(gen).items()}
 
     times.update({("flash_attention", label): row for label, row in time_flash(gen).items()})
 

@@ -5,7 +5,9 @@ PyTorch version.
 (B, S, KH, D).  On CUDA tensors it launches ``csrc/flash_attention.cu``
 (the port of ``repro.kernels.flash_attention``'s Pallas kernel) or
 raises; on CPU tensors it runs ``attention_plain``.  Both read kv head
-``h // (H // KH)`` for query head ``h``; neither repeats heads.
+``h // (H // KH)`` for query head ``h``; neither repeats heads.  The
+kernel has no backward: with grad enabled, an input off the CPU that
+requires grad raises.
 
 In bf16 a launch has a tile: query rows per block (one consumer
 warpgroup each 64: 64 or 128, and 192 at head_dim 64 and 80) over the
@@ -131,7 +133,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values."""
     devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
+    on_cpu = devices == {torch.device("cpu")}
+    if not on_cpu and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() or on inputs that do not require grad")
+    if on_cpu:
         return attention_plain(q, k, v, causal)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k, v on {sorted(map(str, devices))}")

@@ -8,7 +8,9 @@ On CUDA tensors it launches ``csrc/ssd_scan.cu`` (the port of
 ``repro.kernels.ssd_scan``'s Pallas kernel, which also pre-scales x by
 dt and takes the within-chunk cumulative sum itself) or raises; on CPU
 tensors it runs ``ssd_plain``.  x, bm and cm are read through their
-strides: bm and cm may be column slices of the in_proj output.
+strides: bm and cm may be column slices of the in_proj output.  The
+kernel has no backward: with grad enabled, an input off the CPU that
+requires grad raises.
 """
 
 from __future__ import annotations
@@ -123,7 +125,11 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """(y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32)."""
     tensors = (xh, dt, a_log, bm, cm)
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    on_cpu = devices == {torch.device("cpu")}
+    if not on_cpu and torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("ssd_scan: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that do not require grad")
+    if on_cpu:
         return ssd_plain(xh, dt, a_log, bm, cm, chunk, return_state=True)
     if len(devices) != 1 or xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: inputs on {sorted(map(str, devices))}")

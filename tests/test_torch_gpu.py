@@ -42,8 +42,11 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(512, 2048), (4, 2048), (7, 64), (3, 100)])
+@pytest.mark.parametrize("shape", [(512, 2048), (4, 2048), (7, 64), (3, 100), (4, 2560),
+                                   (1, 2048), (512, 5120), (3, 3072), (2, 24576)])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    # the serve widths' own layouts, the generic vector instance (64,
+    # 3072), rows past its 2048 vectors and a width off 16 bytes (scalar)
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, generator=g, device=cuda).to(dtype)
     w = torch.randn(shape[-1], generator=g, device=cuda) * 0.2
@@ -51,6 +54,44 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     got = rn.rmsnorm(x, w)
     assert rn.launches == before + 1
     torch.testing.assert_close(got, rn.rmsnorm_plain(x, w), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 5120])
+def test_rmsnorm_kernel_takes_misaligned_views(cuda, d, dtype):
+    """x, y or w off a 16-byte boundary: the scalar path."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(4 * d + 1, generator=g, device=cuda).to(dtype)[1:].view(4, d)
+    w = torch.randn(d + 1, generator=g, device=cuda) * 0.2
+    for xv, wv in ((x, w[:d]), (x.clone(), w[1:]), (x, w[1:])):
+        torch.testing.assert_close(rn.rmsnorm(xv, wv), rn.rmsnorm_plain(xv, wv),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 7, 512])
+@pytest.mark.parametrize("d", [2048, 2560, 5120, 100])
+def test_rmsnorm_rows_do_not_depend_on_their_companions(cuda, d, m, dtype):
+    """The layout depends on (D, dtype) alone, so a row's bits are the
+    same alone as among M rows: a prefill's M is how many requests were
+    admitted together, and greedy tokens must not depend on it."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(m, d, generator=g, device=cuda).to(dtype)
+    w = torch.randn(d, generator=g, device=cuda) * 0.2
+    got = rn.rmsnorm(x, w)
+    for i in sorted({0, m // 2, m - 1}):
+        assert torch.equal(rn.rmsnorm(x[i:i + 1].clone(), w)[0], got[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 2560, 5120])
+def test_rmsnorm_serve_widths_have_a_layout_of_their_own(cuda, d, dtype):
+    """Each serve width's threads and vectors cover the row exactly."""
+    lay = rn.layout(d, dtype)
+    per_vec = 128 // torch.finfo(dtype).bits  # elements in 16 bytes
+    assert lay["threads_per_row"] % 32 == 0
+    assert lay["threads_per_row"] * lay["vecs_per_thread"] * per_vec == d
+    assert rn.layout(99, dtype)["vecs_per_thread"] == 0  # rows off 16 bytes: the scalar path
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -158,6 +199,24 @@ def test_ssd_kernel_pads_are_exact(cuda):
     y, state = ss.ssd_scan(x, dt, a_log, bm, cm, 64)
     y64, state64 = ss.ssd_scan(x[:, :64], dt[:, :64], a_log, bm[:, :64], cm[:, :64], 64)
     assert torch.equal(state, state64) and torch.equal(y[:, :64], y64)
+
+
+def test_wrappers_refuse_grad_on_the_card(cuda):
+    """No kernel has a backward: with grad enabled, a CUDA input that
+    requires grad raises; under no_grad the kernel runs."""
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    w = torch.zeros(64, device=cuda)
+    q = torch.randn(1, 8, 2, 64, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 8, 1, 64, device=cuda)
+    xs, dt, a_log, bm, cm = _ssd_inputs(torch.Generator(device=cuda).manual_seed(8),
+                                        1, 8, 2, 4, 4, torch.float32)
+    calls = (lambda: rn.rmsnorm(x, w), lambda: fa.flash_attention(q, kv, kv),
+             lambda: ss.ssd_scan(xs.requires_grad_(), dt, a_log, bm, cm, 4))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -23,7 +23,7 @@ from _torch_parity import np32  # noqa: E402
 from repro.kernels import attention as jax_attention  # noqa: E402
 from repro.kernels import attention_ref, rmsnorm_op as jax_rmsnorm_op  # noqa: E402
 from repro.models.layers import rms_norm as jax_rms_norm  # noqa: E402
-from repro_torch.kernels import _build, flash_attention, ops, rmsnorm  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, ops, rmsnorm, ssd_scan  # noqa: E402
 from repro_torch.weights import tensor_from_numpy  # noqa: E402
 
 DTYPES = {"fp32": (np.float32, 2e-5), "bf16": (ml_dtypes.bfloat16, 2e-2)}
@@ -100,6 +100,37 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     qm = torch.empty(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError):
         flash_attention.flash_attention(qm, qm, qm)
+
+
+def _kernel_call(name, device):
+    """Call the wrapper ``name`` on small inputs on ``device`` whose first
+    input requires grad."""
+    if name == "rmsnorm":
+        x = torch.randn(4, 64, device=device, requires_grad=True)
+        return rmsnorm.rmsnorm(x, torch.zeros(64, device=device)), x
+    if name == "flash_attention":
+        q = torch.randn(1, 8, 2, 64, device=device, requires_grad=True)
+        kv = torch.randn(1, 8, 1, 64, device=device)
+        return flash_attention.flash_attention(q, kv, kv), q
+    x = torch.randn(1, 8, 2, 4, device=device, requires_grad=True)
+    dt = torch.rand(1, 8, 2, device=device)
+    bm = torch.randn(1, 8, 4, device=device)
+    return ssd_scan.ssd_scan(x, dt, torch.zeros(2, device=device), bm, bm, 4)[0], x
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "ssd_scan"])
+def test_wrappers_refuse_grad_off_the_cpu(name):
+    """The kernels have no backward: off the CPU, with grad enabled, an
+    input that requires grad raises before the device is looked at (meta
+    tensors stand for CUDA ones here); under no_grad the same call reaches
+    the device check.  On the CPU the plain version keeps autograd."""
+    with pytest.raises(RuntimeError, match="no backward"):
+        _kernel_call(name, "meta")
+    with torch.no_grad(), pytest.raises(ValueError):
+        _kernel_call(name, "meta")
+    out, leaf = _kernel_call(name, "cpu")
+    out.float().square().sum().backward()
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
 
 
 def test_build_refuses_without_nvcc():

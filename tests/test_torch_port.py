@@ -23,7 +23,8 @@ from repro_torch.serve import ContinuousBatchingEngine, ServeEngine  # noqa: E40
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"]
 ARCHS = jax_configs.ARCH_IDS
 PORTED = [a for a in ARCHS if jax_configs.get_config(a).family in ("dense", "hybrid")]
 
