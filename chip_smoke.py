@@ -9,12 +9,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device: the card's name and power limit.
 2. build: the CUDA kernels compiled from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a, one process per source, all at once).
+   sm_90a, one process per source, all at once), with registers and
+   spill bytes per compiled kernel (``ssd_mma_kernel<1>``: the bf16 SSD
+   scan with 16-byte staging, ``<0>`` with scalar staging).
 3. check: each kernel against its plain PyTorch version on the card, in
    bf16 and fp32, at the main paths' shapes and at ragged/GQA ones
    (rmsnorm: also a view off a 16-byte boundary, and each row bitwise
    equal alone and among 4, 7 or 512 rows at widths 2048, 2560, 5120
-   and 100; the SSD scan: y and the final state, with and without pads;
+   and 100; the SSD scan: y and the final state, with and without pads,
+   and in bf16 at a 4096-token prompt (1, 4096, 80, 64, 64, 64);
    flash at zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
    head_dims 256 and 80 and at gemma-2b's S = 4096 with the time phase's
    tile; the triad at lengths 1 to 2^26, three scalars, and views off a
@@ -25,8 +28,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    paths run, each beside an empty kernel of its grid and block
    (``floor_ms``) and with its layout; flash also at S = 4096 for both
    models (``long_prefill``, ``hybrid_long_prefill``), with its tile, grid and
-   host time per call; the triad at 2^20 (the HPCC config's size) and at
-   2^26 elements (each array 4x the 50 MB L2).
+   host time per call; the SSD scan at zamba2-2.7b's prefill and at a
+   4096-token prompt (``hybrid_long_prefill``), each with its bound share;
+   the triad at 2^20 (the HPCC config's size) and at 2^26 elements (each
+   array 4x the 50 MB L2).
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
    ``_stream_body``) through ``repro_torch.kernels.ops.triad`` at the HPCC
    config's ``stream_elems_per_proc`` and at 2^26 fp32 elements: one
@@ -85,8 +90,11 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16: kernel and plain round X, M and both halves of y at the same
 # places; fp32 sums taken in another order can land on the other side of
 # one of those three roundings, one bf16 unit (2^-8) of a term of size up
-# to max|y| each: 2^-6.  fp32: 1e-4, as above.  The fp32 state is held to
-# 1e-4 * max|state| at both dtypes (it is never rounded to bf16).
+# to max|y| each: 2^-6 (the bf16 kernel also rounds its copy of the state
+# that C state reads; tests/test_torch_ssd_numerics.py emulates that plan
+# within the same bound).  fp32: 1e-4, as above.  The fp32 state is held
+# to 1e-4 * max|state| at both dtypes (the bf16 kernel keeps it in fp32
+# and carries its update's decay-scaled B as a bf16 high and low part).
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # card vs CPU logits at fp32 over 2 full-width layers: reductions of 2048
 # to 16384 terms summed in another order on each device move logits of
@@ -294,8 +302,10 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, lengths=None):
     return x, dt, a_log, bc[..., :n], bc[..., n: 2 * n]
 
 
-# zamba2-2.7b's prefill shapes at 4 slots and prefill_pad 128
+# zamba2-2.7b's prefill shapes at 4 slots and prefill_pad 128, and a
+# prompt at its 4096-token context
 SSD_SHAPE = (4, 128, 80, 64, 64, 64)  # B, S, H, P, N, chunk
+SSD_LONG_SHAPE = (1, 4096, 80, 64, 64, 64)
 FLASH80_SHAPE = (4, 128, 32, 32, 80)  # B, S, H, KH, D
 
 
@@ -354,10 +364,14 @@ def phase_check() -> dict:
             if dtype == torch.bfloat16 and (b, s, h, kh, d) == (4, 128, 8, 1, 256):
                 errs["flash_attention"] = err
         _, _, h, p, n, q = SSD_SHAPE
+        # the serve shape, pads, and in bf16 a 4096-token prompt (64 chunks
+        # of state carried in the mma kernel's registers)
+        ssd_long = ((SSD_LONG_SHAPE, None),) if dtype == torch.bfloat16 else ()
         for shape, lengths in ((SSD_SHAPE, None),
-                               ((4, 64, h, p, n, q), torch.tensor([64, 1, 37, 63], device="cuda"))):
+                               ((4, 64, h, p, n, q), torch.tensor([64, 1, 37, 63], device="cuda")),
+                               *ssd_long):
             b, s, h, p, n, q = shape
-            args = _ssd_inputs(gen, b, s, h, p, n, dtype, lengths)
+            args = _ssd_inputs(long_gen if s > 1000 else gen, b, s, h, p, n, dtype, lengths)
             y, state = ss.ssd_scan(*args, q)
             want_y, want_state = ss.ssd_plain(*args, q, return_state=True)
             err = max_err_scaled(y, want_y, SSD_TOL[dtype])
@@ -524,8 +538,38 @@ def time_rmsnorm(gen) -> dict:
     return rows
 
 
-def phase_time(card: dict) -> dict:
+def time_ssd(gen) -> dict:
+    """The SSD scan's rows of the time phase (bf16, the mma kernel), by
+    label: the serve prefill and a 4096-token prompt, with the kernel's
+    blocks (one per (b, h); 3 fit an SM) and its bound share."""
     from repro_torch.kernels import ssd_scan as ss
+
+    rows = {}
+    # 16 rotating sets of ~5 MB at the serve shape; 4 of ~45 MB at S = 4096
+    for label, shape, n_sets in (("prefill", SSD_SHAPE, 16),
+                                 ("hybrid_long_prefill", SSD_LONG_SHAPE, 4)):
+        b, s, h, p, n, q = shape
+        sets = [_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16) for _ in range(n_sets)]
+        # bytes: bf16 x in, y out; fp32 dt in, state out; bf16 B, C in.
+        # operations: per (b, h, chunk) the lower triangle of C B^T and of
+        # M X (Q(Q+1)/2 entries of N and P products), C state and the
+        # state update (Q N P each), two flops per product, on bf16 inputs
+        bytes_ = 2 * 2 * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * 2 * b * s * n + 4 * h
+        tri = q * (q + 1) // 2
+        flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
+        row = rows[label] = {
+            "shape": list(shape), "dtype": "bfloat16", "blocks": b * h,
+            "ms": device_ms(lambda *a: ss.ssd_scan(*a, q), sets),
+            "plain_ms": device_ms(lambda *a: ss.ssd_plain(*a, q, return_state=True), sets),
+            "library_ms": None,  # no single PyTorch call computes the SSD scan
+            **_bound(bytes_, flops, BF16_FLOPS),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        del sets
+    return rows
+
+
+def phase_time(card: dict) -> dict:
     from repro_torch.kernels import stream_triad as st
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -533,22 +577,7 @@ def phase_time(card: dict) -> dict:
 
     times.update({("flash_attention", label): row for label, row in time_flash(gen).items()})
 
-    b, s, h, p, n, q = SSD_SHAPE
-    sets = [_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16) for _ in range(16)]
-    # bytes: bf16 x in, y out; fp32 dt in, state out; bf16 B, C in.
-    # operations: per (b, h, chunk) the lower triangle of C B^T and of M X
-    # (Q(Q+1)/2 entries of N and P products), C state and the state
-    # update (Q N P each), two flops per product, on bf16 inputs
-    bytes_ = 2 * 2 * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * 2 * b * s * n + 4 * h
-    tri = q * (q + 1) // 2
-    flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
-    times[("ssd_scan", "prefill")] = {
-        "shape": list(SSD_SHAPE), "dtype": "bfloat16",
-        "ms": device_ms(lambda *a: ss.ssd_scan(*a, q), sets),
-        "plain_ms": device_ms(lambda *a: ss.ssd_plain(*a, q, return_state=True), sets),
-        "library_ms": None,  # no single PyTorch call computes the SSD scan
-        **_bound(bytes_, flops, BF16_FLOPS),
-    }
+    times.update({("ssd_scan", label): row for label, row in time_ssd(gen).items()})
 
     # 2^20: the HPCC config's size (and the JAX package's kernel_triad_1M
     # micro-bench), 24 rotating sets as above.  2^26: each array 256 MiB

@@ -6,7 +6,8 @@ fp32, a_log (H,) fp32 and bm/cm (B, S, N), and returns y (B, S, H, P)
 in x's dtype and the (B, H, P, N) fp32 state after the last position.
 On CUDA tensors it launches ``csrc/ssd_scan.cu`` (the port of
 ``repro.kernels.ssd_scan``'s Pallas kernel, which also pre-scales x by
-dt and takes the within-chunk cumulative sum itself) or raises; on CPU
+dt and takes the within-chunk cumulative sum itself: in bf16 on the
+tensor cores with ``mma.sync``, in fp32 with FMA) or raises; on CPU
 tensors it runs ``ssd_plain``.  x, bm and cm are read through their
 strides: bm and cm may be column slices of the in_proj output.  The
 kernel has no backward: with grad enabled, an input off the CPU that

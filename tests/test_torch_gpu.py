@@ -9,7 +9,9 @@ held to a tolerance relative to its largest magnitude: at bf16 the kernel
 rounds X, M and both halves of y where the plain version does, so they
 differ where fp32 sums taken in another order land on the other side of
 a bf16 rounding, one bf16 unit (2^-8) of a term of size up to max|y| for
-each of those three roundings: 2^-6 * max|y|.  Its fp32 state is held to
+each of those three roundings: 2^-6 * max|y| (the bf16 kernel also rounds
+its copy of the state that C state reads; ``test_torch_ssd_numerics.py``
+emulates that plan within the same bound).  Its fp32 state is held to
 1e-4 * max|state| at both dtypes.  The triad is held elementwise to
 4 eps (|b| + |s| |c|), eps = 2^-23 at fp32 (machine epsilon, two units
 of roundoff) and 2^-8 at bf16 (one unit of roundoff): the kernel rounds
@@ -177,6 +179,8 @@ def _close_to_scale(got, want, tol):
     (4, 128, 80, 64, 64, 64, False),  # zamba2-2.7b prefill
     (3, 64, 8, 64, 64, 64, True),     # pads (dt = 0) past each row's length
     (2, 32, 3, 32, 8, 8, False),      # the reduced config's widths
+    (1, 1024, 8, 64, 64, 64, False),  # 16 chunks of state carried
+    (2, 48, 2, 12, 20, 12, True),     # Q, N, P off 8: padded to 16, scalar staging
 ])
 def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, q, ragged, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -199,6 +203,38 @@ def test_ssd_kernel_pads_are_exact(cuda):
     y, state = ss.ssd_scan(x, dt, a_log, bm, cm, 64)
     y64, state64 = ss.ssd_scan(x[:, :64], dt[:, :64], a_log, bm[:, :64], cm[:, :64], 64)
     assert torch.equal(state, state64) and torch.equal(y[:, :64], y64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_misaligned_views(cuda, dtype):
+    """B and C (and x) one element off a 16-byte boundary: the scalar
+    staging path."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, h, p, n = 2, 128, 4, 64, 64
+    x = torch.randn(b * s * h * p + 1, generator=g, device=cuda).to(dtype)[1:].view(b, s, h, p)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=g, device=cuda) - 1)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=cuda))
+    bc = torch.randn(b, s, 3 * n + 1, generator=g, device=cuda).to(dtype)[..., 1:]
+    for xv, bm, cm in ((x.clone(), bc[..., n: 2 * n], bc[..., 2 * n:]),
+                       (x, bc[..., n: 2 * n].contiguous(), bc[..., 2 * n:].contiguous())):
+        y, state = ss.ssd_scan(xv, dt, a_log, bm, cm, 64)
+        want_y, want_state = ss.ssd_plain(xv, dt, a_log, bm, cm, 64, return_state=True)
+        _close_to_scale(y, want_y, SSD_TOL[dtype])
+        _close_to_scale(state, want_state, SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_rows_do_not_depend_on_their_companions(cuda, dtype):
+    """A batch row's y and state are bitwise the same alone and among 4
+    rows: a prefill's batch is how many requests were admitted together,
+    and greedy tokens must not depend on it."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, dt, a_log, bm, cm = _ssd_inputs(g, 4, 128, 8, 64, 64, dtype)
+    y, state = ss.ssd_scan(x, dt, a_log, bm, cm, 64)
+    for i in (0, 2, 3):
+        yi, si = ss.ssd_scan(x[i:i + 1].clone(), dt[i:i + 1].clone(), a_log,
+                             bm[i:i + 1].clone(), cm[i:i + 1].clone(), 64)
+        assert torch.equal(yi[0], y[i]) and torch.equal(si[0], state[i]), i
 
 
 def test_wrappers_refuse_grad_on_the_card(cuda):
