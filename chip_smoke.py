@@ -18,17 +18,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    equal alone and among 4, 7 or 512 rows at widths 2048, 2560, 5120
    and 100; the SSD scan: y and the final state, with and without pads,
    and in bf16 at a 4096-token prompt (1, 4096, 80, 64, 64, 64);
-   flash at zamba2's head_dim 80 and, causal in bf16, at a long ragged S = 2000 at
-   head_dims 256 and 80 and at gemma-2b's S = 4096 with the time phase's
-   tile; the triad at lengths 1 to 2^26, three scalars, and views off a
+   flash at zamba2's head_dim 80, at deepseek-moe-16b's prefill (4, 128,
+   16/16, 128) and qwen3-moe's GQA (1, 128, 64/4, 128), and, causal in bf16,
+   at a long ragged S = 2000 at head_dims 256 and 80 and at gemma-2b's
+   S = 4096 with the time phase's tile; the triad at lengths 1 to 2^26, three scalars, and views off a
    16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
    the least time the card needs; rmsnorm at the five shapes the serve
    paths run, each beside an empty kernel of its grid and block
-   (``floor_ms``) and with its layout; flash also at S = 4096 for both
-   models (``long_prefill``, ``hybrid_long_prefill``), with its tile, grid and
-   host time per call; the SSD scan at zamba2-2.7b's prefill and at a
+   (``floor_ms``) and with its layout; flash at each serve path's prefill
+   (``prefill``, ``hybrid_prefill``, ``moe_prefill``) and at S = 4096 for
+   gemma and zamba2 (``long_prefill``, ``hybrid_long_prefill``), with its
+   tile, grid and host time per call; the SSD scan at zamba2-2.7b's prefill and at a
    4096-token prompt (``hybrid_long_prefill``), each with its bound share;
    the triad at 2^20 (the HPCC config's size) and at 2^26 elements (each
    array 4x the 50 MB L2).
@@ -49,12 +51,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    9 groups, a weight-shared attention block after each): every prefill
    launches the SSD kernel 54 times and flash 9 times, every step
    rmsnorm 127 times.
-8. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
+8. serve_moe: the same for full-width deepseek-moe-16b (28 layers of
+   attention and 64 routed experts, top 6, plus 2 shared): every prefill
+   launches flash 28 times, every step rmsnorm 57 times; the expert
+   products are ``torch.bmm`` at the drop-free capacities (no Pallas
+   kernel in the reference), and the profile gives their device time a
+   decode step beside the time to read every expert's weights once.
+9. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
    on the card (kernels) and on the CPU (plain versions): prefill and 8
    teacher-forced decode steps give the same logits within tolerance.
-9. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
+10. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
    layers and the shared block), the same way: prefill logits, the conv
    and SSM states, and 8 decode steps.
+11. parity_moe: deepseek-moe-16b at full width cut to 2 layers, the same
+   way: prefill logits and 8 decode steps.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -99,7 +109,8 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # card vs CPU logits at fp32 over 2 full-width layers: reductions of 2048
 # to 16384 terms summed in another order on each device move logits of
 # size ~1..5 by ~1e-5; a fault in a kernel moves them by far more.  The
-# same holds for zamba2's one group (reductions of 2560 to 10240 terms).
+# same holds for zamba2's one group (reductions of 2560 to 10240 terms)
+# and for deepseek-moe's 2 layers (2048 to 2816 terms).
 PARITY_TOL = 1e-3
 # The triad, elementwise: |got - want| <= 4 eps (|b| + |s| |c|), with
 # eps = 2^-23 at fp32 (its machine epsilon, two units of roundoff) and
@@ -124,13 +135,13 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid"),
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe"),
     },
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid"),
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe"),
     },
     "ssd_scan": {
         "route": "cuda",
@@ -307,6 +318,10 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype, lengths=None):
 SSD_SHAPE = (4, 128, 80, 64, 64, 64)  # B, S, H, P, N, chunk
 SSD_LONG_SHAPE = (1, 4096, 80, 64, 64, 64)
 FLASH80_SHAPE = (4, 128, 32, 32, 80)  # B, S, H, KH, D
+# deepseek-moe-16b's prefill at 4 slots and prefill_pad 128 (heads of 128,
+# no grouping), and qwen3-moe-235b's GQA heads (64/4, one prompt)
+FLASH_MOE_SHAPE = (4, 128, 16, 16, 128)
+FLASH_QWEN3_SHAPE = (1, 128, 64, 4, 128)
 
 
 def phase_check() -> dict:
@@ -321,6 +336,7 @@ def phase_check() -> dict:
     triad_gen = torch.Generator(device="cuda").manual_seed(3)
     long_gen = torch.Generator(device="cuda").manual_seed(4)
     rows_gen = torch.Generator(device="cuda").manual_seed(5)
+    moe_gen = torch.Generator(device="cuda").manual_seed(6)
     # main shapes, bf16; the triad at 2^20 fp32
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
@@ -352,8 +368,10 @@ def phase_check() -> dict:
         long = (((1, 2000, 8, 1, 256), (1, 2000, 32, 32, 80), (1, 4096, 8, 1, 256))
                 if dtype == torch.bfloat16 else ())
         for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128),
-                               FLASH80_SHAPE, (2, 100, 4, 2, 80), *long):
-            g = long_gen if s > 1000 else gen
+                               FLASH80_SHAPE, (2, 100, 4, 2, 80), *long,
+                               FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE):
+            g = (long_gen if s > 1000 else
+                 moe_gen if (b, s, h, kh, d) in (FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE) else gen)
             q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda").to(dtype)
                        for n in (h, kh, kh))
             err = max_err(fa.flash_attention(q, k, v), fa.attention_plain(q, k, v), tol)
@@ -440,7 +458,7 @@ def _bound(bytes_: float, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_flash(gen) -> dict:
+def time_flash(gen, moe_gen) -> dict:
     """The flash kernel's rows of the time phase, by label: device times of
     the kernel, its plain version and SDPA (the yardstick, never on the
     port's path), host time per call, the bound, and the tile (query
@@ -457,14 +475,17 @@ def time_flash(gen) -> dict:
             is_causal=True, enable_gqa=True,
         )
 
-    # the serving shapes (S = 128) and prompts both models serve at S = 4096
-    # (gemma-2b's context is 8192, zamba2-2.7b's 4096); 8 rotating sets of
-    # 20 and 63 MB at S = 4096
-    for label, (b, s, h, kh, d), n_sets in (("prefill", (4, 128, 8, 1, 256), 24),
-                                            ("hybrid_prefill", FLASH80_SHAPE, 24),
-                                            ("long_prefill", (1, 4096, 8, 1, 256), 8),
-                                            ("hybrid_long_prefill", (1, 4096, 32, 32, 80), 8)):
-        sets = [tuple(torch.randn(b, s, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    # the serving shapes (S = 128) and prompts gemma and zamba2 serve at
+    # S = 4096 (gemma-2b's context is 8192, zamba2-2.7b's 4096); 8 rotating
+    # sets of 20 and 63 MB at S = 4096.  The MoE row draws from its own
+    # generator, so the other rows keep their inputs
+    for label, (b, s, h, kh, d), n_sets, g in (
+            ("prefill", (4, 128, 8, 1, 256), 24, gen),
+            ("hybrid_prefill", FLASH80_SHAPE, 24, gen),
+            ("long_prefill", (1, 4096, 8, 1, 256), 8, gen),
+            ("hybrid_long_prefill", (1, 4096, 32, 32, 80), 8, gen),
+            ("moe_prefill", FLASH_MOE_SHAPE, 24, moe_gen)):
+        sets = [tuple(torch.randn(b, s, n, d, generator=g, device="cuda").to(torch.bfloat16)
                       for n in (h, kh, kh)) for _ in range(n_sets)]
         # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
         flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
@@ -575,7 +596,9 @@ def phase_time(card: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     times = {("rmsnorm", label): row for label, row in time_rmsnorm(gen).items()}
 
-    times.update({("flash_attention", label): row for label, row in time_flash(gen).items()})
+    moe_gen = torch.Generator(device="cuda").manual_seed(7)
+    times.update({("flash_attention", label): row
+                  for label, row in time_flash(gen, moe_gen).items()})
 
     times.update({("ssd_scan", label): row for label, row in time_ssd(gen).items()})
 
@@ -604,38 +627,83 @@ def phase_time(card: dict) -> dict:
     return times
 
 
+def _device_time(prof, cfg) -> dict:
+    """Device-side events of a profile (kernels, copies; the CPU ops that
+    launch them report the same device time again): (name, calls, us)
+    rows, busy seconds, the same rows for the CPU ops by the device time
+    of the kernels each launches itself (``ops``), and for a MoE model the
+    calls and us of the expert products, the ``aten::bmm`` calls whose
+    second operand is an (E, D, F) or (E, F, D) expert stack."""
+    from torch.autograd import DeviceType
+
+    rows, ops = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            rows.append((e.key, e.count, e.self_device_time_total))
+        elif e.self_device_time_total > 0:
+            ops.append((e.key, e.count, e.self_device_time_total))
+    out = {"rows": rows, "ops": ops, "busy_s": sum(r[2] for r in rows) * 1e-6}
+    if cfg.family == "moe":
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        bmm = [ev for ev in prof.key_averages(group_by_input_shape=True)
+               if ev.key == "aten::bmm" and len(ev.input_shapes) > 1
+               and list(ev.input_shapes[1]) in ([e, d, f], [e, f, d])]
+        out.update(expert_calls=sum(ev.count for ev in bmm),
+                   expert_us=sum(ev.device_time_total for ev in bmm))
+    return out
+
+
 def _profile_decode(eng, steps: int = 8) -> dict:
-    """Where a decode step's time goes: a torch.profiler trace over
+    """Where a step's time goes: a torch.profiler trace over the admission
+    step (the bulk prefill of every slot and one decode step) and one over
     ``steps`` decode steps with every slot live.  Device busy time is the
     sum of the kernels' and copies' own device time; the profiler's host
-    cost inflates the wall time, so the idle share is an upper bound."""
-    from torch.autograd import DeviceType
+    cost inflates the wall time, so the idle share is an upper bound.
+    For a MoE model also the expert products' device time (input shapes
+    recorded for it alone)."""
     from torch.profiler import ProfilerActivity, profile
 
+    cfg = eng.cfg
+    moe = cfg.family == "moe"
     for i in range(eng.slots):
         eng.submit([1 + i, 2 + i, 3 + i], max_new=steps + 4)
-    eng.step()  # the admission prefill, outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe) as prof:
+        t0 = time.perf_counter()
+        eng.step()  # the admission prefill
+        torch.cuda.synchronize()
+        admit_wall = time.perf_counter() - t0
+    admit = _device_time(prof, cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     eng.run()
-    # device-side events only (kernels, copies): the CPU ops that launch
-    # them report the same device time again
-    rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy_s = sum(r[2] for r in rows) * 1e-6
-    return {
+    dec = _device_time(prof, cfg)
+    busy_s, rows = dec["busy_s"], dec["rows"]
+    out = {
         "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_s * 1e3 / steps,
         "device_idle_share": 1.0 - busy_s / wall,
         "device_calls_per_step": sum(r[1] for r in rows) / steps,
         "top": [{"name": k[:90], "calls_per_step": c / steps, "ms_per_step": us * 1e-3 / steps}
                 for k, c, us in sorted(rows, key=lambda r: -r[2])[:10]],
+        "top_ops": [{"op": k, "calls_per_step": c / steps, "ms_per_step": us * 1e-3 / steps}
+                    for k, c, us in sorted(dec["ops"], key=lambda r: -r[2])[:12]],
+        "admission_step": {"wall_ms": admit_wall * 1e3,
+                           "device_busy_ms": admit["busy_s"] * 1e3,
+                           "device_calls": sum(r[1] for r in admit["rows"])},
     }
+    if moe:
+        out.update(expert_products_calls_per_step=dec["expert_calls"] / steps,
+                   expert_products_ms_per_step=dec["expert_us"] * 1e-3 / steps,
+                   expert_products_share_of_busy=dec["expert_us"] * 1e-6 / busy_s)
+        out["admission_step"].update(expert_products_ms=admit["expert_us"] * 1e-3)
+    return out
 
 
 def _counters():
@@ -648,9 +716,9 @@ def _counters():
 def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
     """Launches of each kernel that a serve run of ``cfg`` must make:
     rmsnorm twice per layer and once for the head at every step (a hybrid
-    layer's ln and gate norm; two per shared block), flash once per
-    attention block per prefill, the SSD scan once per Mamba2 layer per
-    prefill, the triad never."""
+    layer's ln and gate norm; two per shared block; a dense or MoE layer's
+    ln1 and ln2), flash once per attention block per prefill, the SSD scan
+    once per Mamba2 layer per prefill, the triad never."""
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.hybrid_attn_every
         return {"rmsnorm": (2 * cfg.n_layers + 2 * groups + 1) * (prefill_steps + decode_steps),
@@ -779,6 +847,20 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
             raise AssertionError(f"request {i}: tokens alone differ from scheduled")
 
     profile = _profile_decode(eng)
+    peak = torch.cuda.max_memory_allocated()
+    card_mem = torch.cuda.get_device_properties(0).total_memory
+    if peak >= card_mem:
+        raise AssertionError(f"peak memory {peak} bytes over the card's {card_mem}")
+    extra = {}
+    if cfg.family == "moe":
+        # every expert's weights read once, the least a step of the batched
+        # products over all experts moves (decode_step at cap slots * top_k)
+        w = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff_expert * 2
+        k = cfg.moe_top_k
+        extra = {"moe_caps": {"prefill": geo["slots"] * geo["prefill_pad"] * k,
+                              "decode": geo["slots"] * k},
+                 "expert_weight_bytes": w,
+                 "expert_weight_read_bound_ms": w / HBM_BYTES_PER_S * 1e3}
     out = {
         "card": card["nvidia_smi"], "model": cfg.name, "dtype": "bfloat16",
         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -791,8 +873,8 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
         "prefill_steps": stats["prefill_steps"], "decode_steps": stats["decode_steps"],
         "padded_slot_waste": stats["padded_slot_waste"], "launches": launches,
         "isolated_bitwise_equal": iso_rows,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "profile": profile,
+        "peak_mem_gib": peak / 2**30, "card_mem_gib": card_mem / 2**30,
+        **extra, "profile": profile,
     }
     emit(phase, **out)
     del eng, iso, params
@@ -873,10 +955,12 @@ def main() -> int:
     times = phase_time(card)
     paths = {"stream": phase_stream(card),
              "serve": phase_serve(card, "gemma-2b", "serve"),
-             "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid")}
+             "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid"),
+             "serve_moe": phase_serve(card, "deepseek-moe-16b", "serve_moe")}
     phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2), "parity")
     phase_parity(dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
                                      hybrid_attn_every=6), "parity_hybrid", s=64, short=37)
+    phase_parity(dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2), "parity_moe")
 
     kernels = []
     for name, meta in KERNELS.items():

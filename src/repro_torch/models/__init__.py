@@ -1,5 +1,5 @@
-"""Model zoo in PyTorch: the dense and hybrid families so far (the port
-of ``repro.models``), parameterized by ``ModelConfig``."""
+"""Model zoo in PyTorch: the dense, MoE and hybrid families so far (the
+port of ``repro.models``), parameterized by ``ModelConfig``."""
 
 from .config import ModelConfig
 from .model import (

@@ -2,7 +2,7 @@
 
 The port's own copy of ``repro.models.config`` (the port imports nothing
 of the JAX package); ``param_count`` reads the port's ``param_shapes``,
-which covers the dense family so far.
+which covers the dense, MoE and hybrid families so far.
 
 Field names follow HF conventions where they exist.  ``family`` selects the
 block implementation:

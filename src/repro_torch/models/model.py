@@ -1,7 +1,7 @@
 """Model assembly in PyTorch: param shapes/init, forward, prefill, decode.
 
-The port of ``repro.models.model`` for the dense and hybrid (Zamba2)
-families; moe and ssm raise ``NotImplementedError`` until their slices.
+The port of ``repro.models.model`` for the dense, MoE and hybrid (Zamba2)
+families; ssm raises ``NotImplementedError`` until its slice.
 Parameters keep the JAX package's tree: a dict whose ``layers`` leaves
 are stacked on a leading L axis (hybrid: (groups, every) axes, plus the
 weight-shared ``shared`` block), so ``repro_torch.weights`` maps the
@@ -33,13 +33,14 @@ from .mamba2 import (
     mamba2_param_shapes,
     mamba2_prefill,
 )
+from .moe import moe_ffn, moe_param_shapes
 
 # ---------------------------------------------------------------------------
 # Parameter shapes & init
 # ---------------------------------------------------------------------------
 
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -64,6 +65,10 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return {"ln": (cfg.d_model,), "mix": mamba2_param_shapes(cfg)}
+    if cfg.family == "moe":
+        d = cfg.d_model
+        return {"ln1": (d,), "attn": attn_param_shapes(cfg), "ln2": (d,),
+                "moe": moe_param_shapes(cfg)}
     return _attn_block_shapes(cfg)
 
 
@@ -109,12 +114,21 @@ def keeps_fp32(name: str) -> bool:
         ("mu_", "ln", "gate_norm", "final_norm"))
 
 
+# leaves above this many elements are drawn one slice of the lead axis at
+# a time, so that the fp32 draw is never whole beside its cast: a stacked
+# expert leaf of deepseek-moe-16b (28, 64, 2048, 1408) would otherwise
+# hold a 20.7 GB fp32 temporary.  The served dense and hybrid leaves lie
+# below it and keep their one draw.
+SLICED_DRAW_ELEMS = 2**31
+
+
 def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
                device: torch.device) -> torch.Tensor:
-    """``repro.models.model._init_leaf``'s name rules for the dense and
-    hybrid trees: the SSM leaves' fixed fp32 values (broadcast over the
-    stacked lead dims), zero fp32 norm weights, zero biases, fan-in normal
-    matrices."""
+    """``repro.models.model._init_leaf``'s name rules for the dense, MoE
+    and hybrid trees: the SSM leaves' fixed fp32 values (broadcast over
+    the stacked lead dims), zero fp32 norm weights, zero biases, fan-in
+    normal matrices (the router and the (L, E, D, F) expert leaves
+    too)."""
     if name == "A_log":
         base = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32))
         return base.to(device).expand(shape).contiguous()
@@ -129,9 +143,15 @@ def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
         return torch.zeros(shape, dtype=torch.float32, device=device)  # rms weight is 1 + w
     if name.startswith("b") or len(shape) == 1:
         return torch.zeros(shape, dtype=dtype, device=device)
-    fan_in = shape[-2]
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+    scale = 1.0 / math.sqrt(shape[-2])  # fan-in
+    if math.prod(shape) <= SLICED_DRAW_ELEMS:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out:
+        x = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=device)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -188,13 +208,25 @@ def _mask_vocab_pad(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
-    """Attention + FFN block: a dense layer, or the hybrid's shared block.
-    Returns (x, k, v) with the block's pre-repeat K/V."""
+def _block_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, moe_cap=None):
+    """A block's FFN half on ``x`` before ln2: the routed experts (at
+    capacity ``moe_cap``) where the block has them, else its FFN.  Returns
+    (out, the MoE aux loss or None)."""
+    xn = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return moe_ffn(cfg, p["moe"], xn, cap=moe_cap)
+    return ffn(cfg, p["ffn"], xn), None
+
+
+def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, moe_cap=None):
+    """Attention + FFN block: a dense or MoE layer, or the hybrid's shared
+    block.  Returns (x, k, v, aux) with the block's pre-repeat K/V and its
+    MoE aux loss (None without experts)."""
     a, k, v = attention_prefill(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                 positions)
     x = x + a
-    return x + ffn(cfg, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps)), k, v
+    f, aux = _block_ffn(cfg, p, x, moe_cap)
+    return x + f, k, v, aux
 
 
 def _hybrid_layers(cfg: ModelConfig, params: dict):
@@ -207,9 +239,10 @@ def _hybrid_layers(cfg: ModelConfig, params: dict):
 
 
 def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
-             positions=None) -> torch.Tensor:
+             positions=None):
     """Embedding and every layer: the (B, S, D) hidden states before the
-    final norm."""
+    final norm, and the MoE aux loss averaged over the layers (0 for the
+    other families), as the JAX forward returns it."""
     _require_ported(cfg)
     if inputs_embeds is None:
         x = _embed(cfg, params, tokens)
@@ -218,24 +251,26 @@ def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
     b, s = x.shape[:2]
     if positions is None:
         positions = positions_for(cfg, b, s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
         for _, e, lp in _hybrid_layers(cfg, params):
             x = x + mamba2_block(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps))
             if e == every - 1:
                 x = _attn_block(cfg, params["shared"], x, positions)[0]
-        return x
+        return x, aux
     for i in range(cfg.n_layers):
-        x = _attn_block(cfg, _layer(params["layers"], i), x, positions)[0]
-    return x
+        x, _, _, layer_aux = _attn_block(cfg, _layer(params["layers"], i), x, positions)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux / cfg.n_layers
 
 
 def model_forward(cfg: ModelConfig, params: dict, tokens=None,
                   inputs_embeds=None, positions=None):
     """Returns (logits (B, S, V) float32, aux loss scalar) — the padded
     vocab columns unmasked, as in the JAX forward."""
-    x = backbone(cfg, params, tokens, inputs_embeds, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = backbone(cfg, params, tokens, inputs_embeds, positions)
     return _head(cfg, params, x), aux
 
 
@@ -287,12 +322,13 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     tokens: (B, S) right-padded; lengths: (B,) real lengths (>= 1).
     Returns (last-token logits (B, V) float32 with the padded vocab at
-    -1e30, decode state): dense {"k", "v"} of (L, B, S, KH, Dh); hybrid
+    -1e30, decode state): dense and MoE {"k", "v"} of (L, B, S, KH, Dh); hybrid
     also {"conv": (G, E, B, K-1, Di), "ssm": (G, E, B, H, P, N) fp32} with
     K/V of (G, B, S, KH, Dh).  Pads sit after every real token: the
     causal mask keeps them out of real rows, their KV rows lie beyond the
     decode validity mask, and in the SSM they take dt=0 (identity); each
-    row is computed independently of its batch companions."""
+    row is computed independently of its batch companions (MoE: at the
+    drop-free expert capacity ``b * s * top_k``, as the reference runs it)."""
     _require_ported(cfg)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
@@ -310,31 +346,34 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             state["conv"][gi, ei] = st["conv"]
             state["ssm"][gi, ei] = st["ssm"]
             if ei == e - 1:
-                x, ck, cv = _attn_block(cfg, params["shared"], x, positions)
+                x, ck, cv, _ = _attn_block(cfg, params["shared"], x, positions)
                 state["k"][gi] = ck
                 state["v"][gi] = cv
     else:
+        cap = b * s * cfg.moe_top_k if cfg.family == "moe" else None
         for i in range(cfg.n_layers):
-            x, ck, cv = _attn_block(cfg, _layer(params["layers"], i), x, positions)
+            x, ck, cv, _ = _attn_block(cfg, _layer(params["layers"], i), x, positions, cap)
             state["k"][i] = ck
             state["v"][i] = cv
     x_last = x[torch.arange(b, device=dev), lengths - 1]  # (B, D)
     return last_logits(cfg, params, x_last), state
 
 
-def _decode_attn_block(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos):
+def _decode_attn_block(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos,
+                       moe_cap=None):
     a, _, _ = attention_decode(cfg, p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
                                cache_k, cache_v, pos)
     x = x + a
-    return x + ffn(cfg, p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + _block_ffn(cfg, p, x, moe_cap)[0]
 
 
 def decode_step(cfg: ModelConfig, params: dict, state: dict,
-                tokens: torch.Tensor, pos):
+                tokens: torch.Tensor, pos, moe_cap: int | None = None):
     """One decode step.  tokens: (B, 1); pos: scalar current index or (B,)
-    per-slot positions.  Returns (logits (B, V) float32, state): every
-    leaf of ``state`` (KV caches; hybrid conv tails and SSM states) is
-    updated in place and returned."""
+    per-slot positions; ``moe_cap`` overrides the MoE expert capacity
+    (serving passes the drop-free ``B * top_k``).  Returns (logits (B, V)
+    float32, state): every leaf of ``state`` (KV caches; hybrid conv tails
+    and SSM states) is updated in place and returned."""
     _require_ported(cfg)
     x = _embed(cfg, params, tokens)
     if cfg.family == "hybrid":
@@ -350,5 +389,5 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
     else:
         for i in range(cfg.n_layers):
             x = _decode_attn_block(cfg, _layer(params["layers"], i), x,
-                                   state["k"][i], state["v"][i], pos)
+                                   state["k"][i], state["v"][i], pos, moe_cap)
     return last_logits(cfg, params, x[:, 0]), state

@@ -84,7 +84,7 @@ def make_prefill_step(cfg: ModelConfig, last_only: bool = True,
                   positions=batch.get("positions"))
         if not last_only:
             return model_forward(cfg, params, **kw)[0]
-        return last_logits(cfg, params, backbone(cfg, params, **kw)[:, -1])
+        return last_logits(cfg, params, backbone(cfg, params, **kw)[0][:, -1])
 
     return prefill_step
 
@@ -183,6 +183,11 @@ class ContinuousBatchingEngine:
         self._gens: list[torch.Generator | None] = [None] * slots
         self._prefill = make_prefill_step(cfg, with_state=True,
                                           state_dtype=state_dtype)
+        # MoE: the drop-free expert capacity of a decode step.  Fixed per
+        # engine, as the prefill's b * s * top_k is for its (slots,
+        # prefill_pad) shape, so the expert products run at one shape and a
+        # row's bits do not depend on its companions
+        self._moe_cap = slots * cfg.moe_top_k if cfg.family == "moe" else None
 
     # -- device steps ------------------------------------------------------
 
@@ -221,7 +226,7 @@ class ContinuousBatchingEngine:
         int32 host copy [token, was active, done]."""
         c = self._carry
         logits, _ = decode_step(self.cfg, self.params, c["state"], c["tokens"],
-                                c["pos"])
+                                c["pos"], moe_cap=self._moe_cap)
         tok = _sample(logits, rows, self._temps, self._gens)
         was = c["active"]
         gen = c["gen"] + was

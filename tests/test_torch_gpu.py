@@ -19,17 +19,28 @@ the FMA once in fp32 (at bf16 once more, to bf16), the plain version
 s * c and then the sum in the inputs' dtype, each rounding within one
 unit of roundoff of the terms.  They differ by up to 1.5 eps at fp32
 (4 eps is 8/3 of that) and 3 eps at bf16 (4/3 of it), and the result
-itself can cancel to near 0.
+itself can cancel to near 0.  The MoE path runs no kernel of its own
+(its expert products are ``torch.bmm``); on the card it is held to its
+CPU run at fp32 with the fp32 tolerance, shows no host sync in a decode
+step, and launches rmsnorm and flash where the model says.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import stream_triad as st  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step,
+    init_decode_state,
+    init_params,
+    moe,
+    prefill_forward,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -322,3 +333,89 @@ def test_triad_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         st.stream_triad(b.int(), b.int(), 3.0)
     with pytest.raises(ValueError):
         st.stream_triad(b, b.cpu(), 3.0)
+
+
+def _moe_layer(cfg, device):
+    """Layer 0's MoE parameters of a reduced deepseek-moe-16b."""
+    p = init_params(cfg, 3, dtype=torch.float32, device="cpu")["layers"]["moe"]
+
+    def first(t):
+        return {k: first(v) if isinstance(v, dict) else v[0].to(device) for k, v in t.items()}
+
+    return first(p)
+
+
+@pytest.mark.parametrize("cap", ["drop_free", "overflow"])
+def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cap, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("deepseek-moe-16b").reduced()
+    x = torch.randn(3, 8, cfg.d_model, generator=torch.Generator().manual_seed(9))
+    c = {"drop_free": 24 * cfg.moe_top_k, "overflow": 6}[cap]
+    want_y, want_aux = moe.moe_ffn(cfg, _moe_layer(cfg, "cpu"), x, cap=c)
+    got_y, got_aux = moe.moe_ffn(cfg, _moe_layer(cfg, cuda), x.to(cuda), cap=c)
+    torch.testing.assert_close(got_y.cpu(), want_y, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_rows_do_not_depend_on_their_companions(cuda, dtype):
+    """At a fixed capacity a token's output bits are the same whatever
+    tokens share its step and whichever buffer rows it lands in: deepseek's
+    decode widths (64 experts of 2048 x 1408, top 6, 4 slots, cap 24)."""
+    cfg = get_config("deepseek-moe-16b")
+    g = torch.Generator(device=cuda).manual_seed(10)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=cuda) / shape[-2] ** 0.5).to(dtype)
+
+    p = {"router": w(d, e), "experts": {"w_gate": w(e, d, f), "w_up": w(e, d, f),
+                                        "w_down": w(e, f, d)},
+         "shared": {"w_gate": w(d, 2 * f), "w_up": w(d, 2 * f), "w_down": w(2 * f, d)}}
+    cap = 4 * cfg.moe_top_k
+    x = torch.randn(8, 1, d, generator=g, device=cuda).to(dtype)
+    y = moe.moe_ffn(cfg, p, x[:4], cap=cap)[0]
+    for rows in ([4, 5, 0, 6], [0, 7, 7, 7], [3, 2, 1, 0]):
+        other = moe.moe_ffn(cfg, p, x[rows], cap=cap)[0]
+        for i, r in enumerate(rows):
+            if r < 4:
+                assert torch.equal(other[i], y[r]), (rows, i)
+
+
+def test_moe_decode_step_makes_no_host_sync(cuda):
+    """A MoE decode step queues its work and never waits for the card:
+    the engine's one host copy a step stays the only one."""
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 4, dtype=torch.float32, device=cuda)
+    b = 4
+    state = init_decode_state(cfg, b, 16, dtype=torch.float32, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (b, 1), device=cuda)
+    pos = torch.arange(b, device=cuda)
+    decode_step(cfg, params, state, tokens, pos, moe_cap=b * cfg.moe_top_k)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = decode_step(cfg, params, state, tokens, pos + 1,
+                                moe_cap=b * cfg.moe_top_k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert logits.shape == (b, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+
+
+def test_moe_prefill_and_decode_launch_the_kernels(cuda):
+    """A MoE prefill launches rmsnorm 2L+1 times and flash L times, a
+    decode step rmsnorm 2L+1 times and no flash; nothing else."""
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 5, dtype=torch.float32, device=cuda)
+    b, s, n = 2, 8, cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=cuda)
+    lengths = torch.tensor([s, 5], device=cuda)
+    mods = (rn, fa, ss, st)
+    before = [m.launches for m in mods]
+    _, pstate = prefill_forward(cfg, params, tokens, lengths, state_dtype=torch.float32)
+    assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, n, 0, 0]
+    before = [m.launches for m in mods]
+    decode_step(cfg, params, pstate, tokens[:, :1], lengths - 1, moe_cap=b * cfg.moe_top_k)
+    assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, 0, 0, 0]

@@ -21,6 +21,7 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.models.model import abstract_params  # noqa: E402
 from repro.models.model import prefill_forward as jax_prefill  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
+from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     decode_step,
     init_decode_state,
@@ -34,13 +35,18 @@ from repro_torch.weights import params_from_numpy  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-4)
 # gemma: MQA, tied + scaled embeddings, and a vocab below its padding so
 # the -1e30 pad mask is live; qwen2: qkv bias, as reduced (MHA) and GQA;
-# zamba2: the hybrid family (Mamba2 groups and the weight-shared block)
+# zamba2: the hybrid family (Mamba2 groups and the weight-shared block);
+# deepseek-moe and qwen3-moe: the MoE family, with and without shared
+# experts (qwen3 GQA)
 ARCHS = {
     "gemma-2b": {"vocab": 250},
     "qwen2-7b": {},
     "qwen2-7b-gqa": {"n_kv_heads": 2},
     "zamba2-2.7b": {},
+    "deepseek-moe-16b": {},
+    "qwen3-moe-235b-a22b": {},
 }
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
 
 def _cfgs(name):
@@ -200,3 +206,72 @@ def test_hybrid_init_params_match_the_reference():
         else:  # fan-in normal
             std = 1.0 / np.sqrt(t.shape[-2])
             assert abs(t.float().std().item() / std - 1.0) < 0.1, path
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_bridge_on_a_moe_tree(arch):
+    """A MoE tree crosses bit for bit, and cast to bf16 it keeps fp32
+    exactly where the reference's ``abstract_params`` does: the norms
+    (the router and the expert stacks take the working dtype)."""
+    jcfg = jax_config(arch).reduced()
+    tree = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0),
+                                                    dtype=jnp.bfloat16))
+    port = dict(_leaves(params_from_numpy(tree, device="cpu")))
+    for path, want in _leaves(tree):
+        got = port[path]
+        if want.dtype.name == "bfloat16":
+            got, want = got.view(torch.int16), want.view(np.int16)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=path)
+    f32 = jax.tree.map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0),
+                                                   dtype=jnp.float32))
+    cast = dict(_leaves(params_from_numpy(f32, device="cpu", dtype=torch.bfloat16)))
+    want = dict(_leaves(abstract_params(jcfg, dtype=jnp.bfloat16)))
+    assert set(cast) == set(want)
+    assert "/layers/moe/experts/w_gate" in cast and "/layers/moe/router" in cast
+    for path, t in cast.items():
+        assert str(t.dtype).removeprefix("torch.") == want[path].dtype.name, path
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_params_match_the_reference(arch):
+    """The (L, E, D, F) expert stacks, the router and the shared experts:
+    the reference's shapes and dtypes, zero norms, fan-in normal
+    matrices."""
+    jcfg, tcfg = jax_config(arch).reduced(), port_config(arch).reduced()
+    want = dict(_leaves(jax.tree.map(
+        lambda a: (a.shape, a.dtype.name),
+        jax_init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.bfloat16))))
+    got = dict(_leaves(init_params(tcfg, 0, device="cpu")))
+    assert set(got) == set(want)
+    assert got["/layers/moe/experts/w_down"].shape == (
+        tcfg.n_layers, tcfg.n_experts, tcfg.d_ff_expert, tcfg.d_model)
+    for path, t in got.items():
+        assert (tuple(t.shape), str(t.dtype).removeprefix("torch.")) == want[path], path
+        if path.split("/")[-1].startswith(("ln", "final_norm")):
+            assert not t.any(), path
+        else:
+            std = 1.0 / np.sqrt(t.shape[-2])
+            assert abs(t.float().std().item() / std - 1.0) < 0.1, path
+
+
+def test_large_leaves_are_drawn_a_slice_at_a_time(monkeypatch):
+    """Above ``SLICED_DRAW_ELEMS`` a leaf is drawn one slice of its lead
+    axis at a time into the working dtype: the same shape, dtype, scale
+    and seeding, and the leaves below the threshold keep their one draw."""
+    cfg = port_config("deepseek-moe-16b").reduced()
+    whole = dict(_leaves(init_params(cfg, 0, device="cpu")))
+    n = cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff_expert  # one expert stack
+    monkeypatch.setattr(port_model, "SLICED_DRAW_ELEMS", n - 1)
+    sliced = dict(_leaves(init_params(cfg, 0, device="cpu")))
+    assert sliced.keys() == whole.keys()
+    assert dict(_leaves(init_params(cfg, 0, device="cpu")))["/layers/moe/experts/w_up"].equal(
+        sliced["/layers/moe/experts/w_up"])  # seeded
+    drawn_apart = set()
+    for path, t in sliced.items():
+        assert (t.shape, t.dtype) == (whole[path].shape, whole[path].dtype), path
+        if t.numel() > n - 1:
+            drawn_apart.add(path.split("/")[-1])
+            std = 1.0 / np.sqrt(t.shape[-2])
+            assert abs(t.float().std().item() / std - 1.0) < 0.1, path
+    assert drawn_apart == {"w_gate", "w_up", "w_down"}
+    assert sliced["/embed"].equal(whole["/embed"])  # drawn before them, whole

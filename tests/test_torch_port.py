@@ -26,7 +26,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"]
 ARCHS = jax_configs.ARCH_IDS
-PORTED = [a for a in ARCHS if jax_configs.get_config(a).family in ("dense", "hybrid")]
+PORTED = [a for a in ARCHS if jax_configs.get_config(a).family in ("dense", "moe", "hybrid")]
 
 
 def test_import_loads_neither_jax_nor_repro():

@@ -33,6 +33,7 @@ _REQS = [
 
 DENSE = ["gemma-2b", "minicpm-2b", "musicgen-medium", "nemotron-4-15b", "qwen2-7b"]
 HYBRID = ["zamba2-2.7b"]
+MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
 
 def _port_engine(cfg, params, **kw):
@@ -58,7 +59,7 @@ def _drive(eng):
     return [r.tokens for r in live]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"] + HYBRID)
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"] + HYBRID + MOE)
 def test_greedy_tokens_equal_the_jax_engine(arch):
     jp, tp = shared_params(jax_config(arch).reduced(), seed=0)
     want = _drive(JaxEngine(jax_config(arch).reduced(), jp,
@@ -70,7 +71,7 @@ def test_greedy_tokens_equal_the_jax_engine(arch):
             assert g == w, f"{arch}: greedy tokens diverge from the JAX engine"
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE)
 def test_scheduled_bitwise_matches_isolated(arch):
     cfg = port_config(arch).reduced()
     params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
@@ -186,3 +187,24 @@ def test_prefill_last_only_matches_forward():
     got = make_prefill_step(cfg, last_only=True)(params, {"tokens": tokens})
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(make_prefill_step(cfg, last_only=False)(params, {"tokens": tokens}), full)
+
+
+def test_moe_engine_runs_the_drop_free_caps(monkeypatch):
+    """The MoE engine's expert products run at two fixed capacities, the
+    prefill's ``slots * prefill_pad * top_k`` and the decode step's
+    ``slots * top_k`` (the JAX engine's), whatever the requests."""
+    from repro_torch.models import model as port_model
+
+    cfg = port_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    caps = []
+    real = port_model.moe_ffn
+
+    def spy(cfg_, p, x, cap=None):
+        caps.append((x.shape[0] * x.shape[1], cap))
+        return real(cfg_, p, x, cap=cap)
+
+    monkeypatch.setattr(port_model, "moe_ffn", spy)
+    _drive(_port_engine(cfg, params))
+    k, slots, pad = cfg.moe_top_k, _GEO["slots"], _GEO["prefill_pad"]
+    assert set(caps) == {(slots * pad, slots * pad * k), (slots, slots * k)}
