@@ -65,6 +65,23 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and SSM states, and 8 decode steps.
 11. parity_moe: deepseek-moe-16b at full width cut to 2 layers, the same
    way: prefill logits and 8 decode steps.
+12. train: full-width gemma-2b (2,506,172,416 parameters) trained 10 steps
+   through the port's loop (``repro_torch.launch.train.train_loop``):
+   fp32 params from seed 0, batch 4, seq 128, remat on, no checkpoint.
+   Each step's loss (finite, the last below the first), grad norm, lr
+   and host time; the p50 over steps 2-10, tokens/s and the step's bound
+   (fp32 operations or bytes); ``torch.cuda.max_memory_allocated``; the
+   launch counters before and after, which must not move (training runs
+   the kernels' plain versions); then one more step under torch.profiler
+   (device busy, top kernels and ops).
+13. train_resume: the training CLI's ``main`` at ``--reduced`` for
+   gemma-2b, deepseek-moe-16b and zamba2-2.7b on the card: 6 steps with
+   a checkpoint every 2, the restored trees equal bit for bit to the
+   saved ones, and a resume from the step-4 checkpoint giving the
+   uninterrupted run's losses within 1e-5.
+14. parity_train: gemma-2b at full width cut to 2 layers, fp32, the same
+   weights on the card and on the CPU: loss, grad norm and parameters
+   after 2 train steps.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -936,6 +953,263 @@ def phase_parity(cfg, phase: str = "parity", s: int = 16, short: int = 9) -> dic
     return out
 
 
+def _launch_counts() -> dict:
+    return {name: mod.launches for name, mod in _counters().items()}
+
+
+def train_bound(cfg, params: dict, batch: int, seq: int) -> dict:
+    """The least time of one train step (remat on) at fp32: the larger of
+    its operations over the fp32 peak and its bytes over the memory rate.
+    Operations: 2 per weight and token for the forward, 4 for the
+    backward and 2 more for the remat recompute of the layers (the head
+    is not recomputed), plus the attention products (the plain version
+    forms the full S x S scores: 4 B S^2 H Dh a layer, forward,
+    recompute and twice in the backward).  Bytes: read p, m and v and
+    write them, once each.  The AdamW update alone, which also reads the
+    gradients, is given beside it."""
+    from repro_torch.train.optimizer import leaves
+
+    layer_w = sum(p.numel() for p in leaves(params["layers"]) if p.dim() >= 3)
+    head_w = cfg.vocab_padded * cfg.d_model
+    n = sum(p.numel() for p in leaves(params))
+    tokens = batch * seq
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    flops = 6 * tokens * (layer_w + head_w) + 2 * tokens * layer_w + 4 * attn
+    step_bytes = 6 * 4 * n
+    adamw_bytes = 7 * 4 * n
+    return {"params": n, "layer_matrix_params": layer_w, "head_params": head_w,
+            "flops": flops, "flop_ms": flops / FP32_FLOPS * 1e3,
+            "bytes": step_bytes, "byte_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": max(flops / FP32_FLOPS, step_bytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / FP32_FLOPS > step_bytes / HBM_BYTES_PER_S
+            else "bytes",
+            "adamw_bytes": adamw_bytes, "adamw_byte_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _profile_train(cfg, opt, ts, params: dict, opt_state: dict, batch: int, seq: int,
+                   step: int) -> dict:
+    """Where a train step's time goes: one more step (the stream's
+    ``step``) under torch.profiler: device busy and idle share, device
+    calls, the top kernels and the top CPU ops by the device time of the
+    kernels they launch.  The profiler's host cost inflates the wall, so
+    the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.train_step import make_train_step
+
+    fn = make_train_step(cfg, opt, ts)
+    b = synthetic_batch(cfg, batch, seq, step, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = fn(params, opt_state, b)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    dev = _device_time(prof, cfg)
+    rows = dev["rows"]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": dev["busy_s"] * 1e3,
+            "device_idle_share": 1.0 - dev["busy_s"] / wall,
+            "device_calls": sum(r[1] for r in rows),
+            "top": [{"name": k[:90], "calls": c, "ms": us * 1e-3}
+                    for k, c, us in sorted(rows, key=lambda r: -r[2])[:12]],
+            "top_ops": [{"op": k, "calls": c, "ms": us * 1e-3}
+                        for k, c, us in sorted(dev["ops"], key=lambda r: -r[2])[:16]]}
+
+
+def phase_train(card: dict, steps: int = 10, batch: int = 4, seq: int = 128) -> dict:
+    """Full-width gemma-2b trained through the port's loop: fp32 params
+    from seed 0, ``AdamWConfig`` as ``launch/train.py`` builds it, remat
+    on, no checkpoint.  The loss must stay finite and end below where it
+    began, and no kernel may launch (training takes the plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig, init_opt_state
+
+    cfg = get_config("gemma-2b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    bound = train_bound(cfg, params, batch, seq)
+    if bound["params"] != 2_506_172_416:
+        raise AssertionError(f"gemma-2b has {bound['params']} parameters")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(10, steps), total_steps=steps,
+                      schedule="wsd" if cfg.wsd_schedule else "cosine")
+    ts = TrainStepConfig(remat=True)
+    opt_state = init_opt_state(cfg, params, ts)
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, hist = train_loop(cfg, opt, ts, params, opt_state, batch=batch,
+                                         seq=seq, steps=steps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    profile = _profile_train(cfg, opt, ts, params, opt_state, batch, seq, steps)
+    after = _launch_counts()
+    if after != before:
+        raise AssertionError(f"training launched kernels: {before} -> {after}")
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = float(np.median(step_ms[1:]))  # steps 2..10: the first pays for warm-up
+    out = {"card": card["nvidia_smi"], "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32", "batch": batch, "seq": seq,
+           "steps": steps, "remat": ts.remat, "lr_peak": opt.lr, "schedule": opt.schedule,
+           "loss": losses, "grad_norm": [h["grad_norm"] for h in hist],
+           "lr": [h["lr"] for h in hist], "step_ms": step_ms, "step_ms_p50_2_to_10": p50,
+           "tokens_per_s": batch * seq / (p50 * 1e-3), "wall_s": wall,
+           "bound": bound, "bound_share": bound["bound_ms"] / p50,
+           "max_memory_allocated_gib": peak / 2**30,
+           "launches_before": before, "launches_after": after, "profile": profile}
+    emit("train", **out)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_ARCHS = ("gemma-2b", "deepseek-moe-16b", "zamba2-2.7b")
+# resumed vs uninterrupted losses on the card: the same arithmetic, but
+# the embedding backward and the MoE scatter accumulate with atomics in
+# any order, so the fp32 losses of a 6-step run of a reduced config may
+# move by a few ulps (~1e-7 relative); a replayed or skipped step moves
+# them by ~1e-4 or more (the learning rate times the gradient's size)
+RESUME_RTOL = 1e-5
+
+
+def _train_events(cli, argv) -> dict:
+    """``cli.main(argv)``; the ``train.step`` spans' losses by step."""
+    from repro_torch.obs import trace
+
+    trace.enable_trace()
+    trace.reset_trace()
+    try:
+        if cli.main(argv) != 0:
+            raise AssertionError(f"train main {argv} failed")
+        return {e[4]["step"]: e[4]["loss"] for e in trace.events() if e[0] == "train.step"}
+    finally:
+        trace.disable_trace()
+
+
+def _bitwise_equal(a: dict, b: dict) -> bool:
+    from repro_torch.train.optimizer import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu())
+        for x, y in zip(la, lb))
+
+
+def phase_train_resume(card: dict) -> dict:
+    """The training CLI (``repro_torch.launch.train.main``) at ``--reduced``
+    on the card for each family: 6 steps with a checkpoint every 2
+    (retention keeps steps 4 and 6), the step-4 checkpoint restored on
+    the card equal bit for bit to its files read on the CPU and to
+    itself saved again from the card and restored; then a copy cut
+    after step 4 resumed with ``--resume``: its losses at steps 4 and 5
+    against the uninterrupted run's, and its final trees beside the
+    uninterrupted ones."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as cli
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import leaves
+
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        for arch in TRAIN_ARCHS:
+            run, cut, again = (Path(tmp) / arch / d for d in ("run", "cut", "again"))
+            argv = ["--arch", arch, "--reduced", "--device", "cuda", "--steps", "6",
+                    "--batch", "4", "--seq", "32", "--ckpt-every", "2"]
+            losses = _train_events(cli, argv + ["--ckpt-dir", str(run)])
+            mgr = CheckpointManager(run)
+            if mgr.list_steps() != [4, 6]:
+                raise AssertionError(f"{arch}: checkpoints {mgr.list_steps()}")
+            _, on_card, _ = mgr.restore(4, device="cuda")
+            _, on_cpu, _ = mgr.restore(4, device="cpu")
+            CheckpointManager(again).save(4, on_card)
+            _, round_trip, _ = CheckpointManager(again).restore(device="cuda")
+            restored_bitwise = _bitwise_equal(on_card, on_cpu) and _bitwise_equal(
+                on_card, round_trip)
+            if not restored_bitwise or int(on_card["opt_state"]["step"]) != 4:
+                raise AssertionError(f"{arch}: restored trees differ from the saved ones")
+            shutil.copytree(run, cut)
+            shutil.rmtree(cut / "step-00000006")
+            resumed = _train_events(cli, argv + ["--ckpt-dir", str(cut), "--resume"])
+            if sorted(resumed) != [4, 5]:
+                raise AssertionError(f"{arch}: resumed steps {sorted(resumed)}")
+            rel = max(abs(resumed[s] - losses[s]) / abs(losses[s]) for s in resumed)
+            if not rel <= RESUME_RTOL:
+                raise AssertionError(f"{arch}: resumed losses {resumed} vs {losses}")
+            _, want, _ = CheckpointManager(run).restore(device="cpu")
+            _, got, _ = CheckpointManager(cut).restore(device="cpu")
+            param_err = max(float((g - w).abs().max())
+                            for g, w in zip(leaves(got["params"]), leaves(want["params"])))
+            rows.append({"arch": arch, "losses": [losses[s] for s in sorted(losses)],
+                         "resumed_losses": [resumed[4], resumed[5]],
+                         "loss_max_rel_err": rel, "final_params_max_abs_diff": param_err,
+                         "final_bitwise_equal": _bitwise_equal(got, want),
+                         "restored_bitwise_equal": restored_bitwise})
+    out = {"card": card["nvidia_smi"], "entry_point": "repro_torch.launch.train.main",
+           "argv": argv[2:], "loss_rtol": RESUME_RTOL, "runs": rows}
+    emit("train_resume", **out)
+    return out
+
+
+# card vs CPU after two fp32 train steps of gemma-2b's 2 full-width
+# layers: loss and grad norm are sums over 256000-wide rows and ~0.7 B
+# gradient entries taken in another order, ~1e-6 apart; parameters agree
+# to 1e-5 but where a gradient entry is near its rounding noise, since
+# AdamW's first step is g / (|g| + eps), a sign: such an entry may move a
+# full LR the other way (at most 1e-4 of the entries, none by over 4 LR)
+PARITY_TRAIN_RTOL = 1e-4
+
+
+def phase_parity_train(cfg, card: dict, batch: int = 2, seq: int = 32) -> dict:
+    """``cfg`` in fp32 with the same weights on the card and on the CPU:
+    two train steps each (remat on); loss, grad norm and the parameters."""
+    from repro_torch.models import init_params
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+
+    gpu = init_params(cfg, seed=2, dtype=torch.float32, device="cuda")
+    cpu = _to_cpu(gpu)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=2)
+    fn = make_train_step(cfg, opt)
+    gs, cs = init_opt_state(cfg, gpu), init_opt_state(cfg, cpu)
+    before = _launch_counts()
+    metrics = []
+    for step in range(2):
+        gpu, gs, gm = fn(gpu, gs, synthetic_batch(cfg, batch, seq, step, device="cuda"))
+        cpu, cs, cm = fn(cpu, cs, synthetic_batch(cfg, batch, seq, step, device="cpu"))
+        row = {}
+        for key in ("loss", "grad_norm"):
+            g, c = float(gm[key]), float(cm[key])
+            if not abs(g - c) <= PARITY_TRAIN_RTOL * abs(c):
+                raise AssertionError(f"step {step} {key}: card {g}, cpu {c}")
+            row[key] = [g, c]
+        metrics.append(row)
+    if _launch_counts() != before:
+        raise AssertionError("parity_train launched kernels")
+    diffs = torch.cat([(g.cpu() - c).abs().flatten() for g, c in zip(leaves(gpu), leaves(cpu))])
+    beyond = float((diffs > 1e-5).float().mean())
+    if float(diffs.max()) > 4 * opt.lr or beyond > 1e-4:
+        raise AssertionError(f"params: max diff {float(diffs.max())}, share beyond 1e-5 {beyond}")
+    out = {"model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": "float32", "batch": batch, "seq": seq, "steps": 2,
+           "metrics_card_cpu": metrics, "rtol": PARITY_TRAIN_RTOL,
+           "params_max_abs_diff": float(diffs.max()), "params_share_beyond_1e-5": beyond,
+           "params": diffs.numel()}
+    emit("parity_train", card=card["nvidia_smi"], **out)
+    del gpu, cpu, gs, cs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -961,6 +1235,9 @@ def main() -> int:
     phase_parity(dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
                                      hybrid_attn_every=6), "parity_hybrid", s=64, short=37)
     phase_parity(dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2), "parity_moe")
+    phase_train(card)
+    phase_train_resume(card)
+    phase_parity_train(dataclasses.replace(get_config("gemma-2b"), n_layers=2), card)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,5 +1,6 @@
 """Model zoo in PyTorch: the dense, MoE and hybrid families so far (the
-port of ``repro.models``), parameterized by ``ModelConfig``."""
+port of ``repro.models``), parameterized by ``ModelConfig``: forward,
+training loss, prefill and decode."""
 
 from .config import ModelConfig
 from .model import (
@@ -7,6 +8,7 @@ from .model import (
     decode_step,
     init_decode_state,
     init_params,
+    loss_fn,
     model_forward,
     param_shapes,
     prefill_forward,
@@ -17,6 +19,7 @@ __all__ = [
     "init_params",
     "param_shapes",
     "model_forward",
+    "loss_fn",
     "prefill_forward",
     "init_decode_state",
     "decode_state_batch_dims",

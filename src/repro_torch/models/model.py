@@ -1,4 +1,5 @@
-"""Model assembly in PyTorch: param shapes/init, forward, prefill, decode.
+"""Model assembly in PyTorch: param shapes/init, forward, loss, prefill,
+decode.
 
 The port of ``repro.models.model`` for the dense, MoE and hybrid (Zamba2)
 families; ssm raises ``NotImplementedError`` until its slice.
@@ -6,16 +7,25 @@ Parameters keep the JAX package's tree: a dict whose ``layers`` leaves
 are stacked on a leading L axis (hybrid: (groups, every) axes, plus the
 weight-shared ``shared`` block), so ``repro_torch.weights`` maps the
 reference's params leaf for leaf.  A Python loop over the layer (hybrid:
-group and layer) index replaces ``lax.scan``.
+group and layer) index replaces ``lax.scan``; ``remat=True`` wraps each
+layer (hybrid: each group) in ``torch.utils.checkpoint`` where the
+reference wraps its scan body in ``jax.checkpoint``.  ``loss_fn`` trains
+through the kernels' plain versions (``kernels.ops.plain_kernels``): the
+kernels have no backward.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..kernels.ops import plain_kernels, plain_route
 from .config import ModelConfig
 from .layers import (
     attention_decode,
@@ -173,9 +183,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     return build(param_shapes(cfg))
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view into the stacked leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, as views: one ``unbind`` a leaf,
+    whose backward stacks the layers' gradients once.  Indexed layer by
+    layer (``tree[k][i]``), each layer's backward would instead add a
+    zero-filled gradient of the whole stacked leaf: L times the
+    parameters' bytes, twice over, in every train step."""
+    per_leaf = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+    return [{k: per_leaf[k][i] for k in tree} for i in range(n)]
 
 
 def _scale_embeddings(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -232,17 +248,40 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, moe_cap=N
 def _hybrid_layers(cfg: ModelConfig, params: dict):
     """(group, layer index in group, layer params) in order."""
     groups, every = _groups(cfg)
-    for g in range(groups):
-        gp = _layer(params["layers"], g)
-        for e in range(every):
-            yield g, e, _layer(gp, e)
+    for g, gp in enumerate(_unstack(params["layers"], groups)):
+        for e, lp in enumerate(_unstack(gp, every)):
+            yield g, e, lp
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  The recompute runs on
+    autograd's thread, where the caller's ``plain_kernels`` context is
+    not set: it is entered there again, as the forward found it."""
+    plain = plain_route()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), plain_kernels(plain)))
+
+
+def _layer_body(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
+    """A dense or MoE layer: (x, its MoE aux loss or None)."""
+    x, _, _, aux = _attn_block(cfg, lp, x, positions)
+    return x, aux
+
+
+def _hybrid_group(cfg: ModelConfig, layers: list, shared: dict, positions, x: torch.Tensor):
+    """One hybrid group: its Mamba2 layers, then the weight-shared block."""
+    for lp in layers:
+        x = x + mamba2_block(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps))
+    return _attn_block(cfg, shared, x, positions)[0]
 
 
 def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
-             positions=None):
+             positions=None, remat: bool = False):
     """Embedding and every layer: the (B, S, D) hidden states before the
     final norm, and the MoE aux loss averaged over the layers (0 for the
-    other families), as the JAX forward returns it."""
+    other families), as the JAX forward returns it.  ``remat`` recomputes
+    each layer's (hybrid: each group's) activations in the backward."""
     _require_ported(cfg)
     if inputs_embeds is None:
         x = _embed(cfg, params, tokens)
@@ -253,25 +292,49 @@ def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
         positions = positions_for(cfg, b, s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
-        every = cfg.hybrid_attn_every
-        for _, e, lp in _hybrid_layers(cfg, params):
-            x = x + mamba2_block(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps))
-            if e == every - 1:
-                x = _attn_block(cfg, params["shared"], x, positions)[0]
+        groups, every = _groups(cfg)
+        for gp in _unstack(params["layers"], groups):
+            body = functools.partial(_hybrid_group, cfg, _unstack(gp, every),
+                                     params["shared"], positions)
+            x = _remat(body, x) if remat else body(x)
         return x, aux
-    for i in range(cfg.n_layers):
-        x, _, _, layer_aux = _attn_block(cfg, _layer(params["layers"], i), x, positions)
+    for lp in _unstack(params["layers"], cfg.n_layers):
+        body = functools.partial(_layer_body, cfg, lp, positions)
+        x, layer_aux = _remat(body, x) if remat else body(x)
         if layer_aux is not None:
             aux = aux + layer_aux
     return x, aux / cfg.n_layers
 
 
 def model_forward(cfg: ModelConfig, params: dict, tokens=None,
-                  inputs_embeds=None, positions=None):
+                  inputs_embeds=None, positions=None, remat: bool = False):
     """Returns (logits (B, S, V) float32, aux loss scalar) — the padded
     vocab columns unmasked, as in the JAX forward."""
-    x, aux = backbone(cfg, params, tokens, inputs_embeds, positions)
+    x, aux = backbone(cfg, params, tokens, inputs_embeds, positions, remat)
     return _head(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: bool = True) -> torch.Tensor:
+    """Causal LM cross-entropy (+ the router aux loss), as
+    ``repro.models.model.loss_fn``.  batch: ``tokens`` or
+    ``inputs_embeds``, optional ``positions``, and ``labels`` (B, S).
+
+    The forward runs inside ``plain_kernels()``: the kernels' plain
+    versions, which autograd differentiates, on every device.  The
+    padded vocab columns are masked at -1e30 before the softmax.  The
+    reference's ``sp`` (a sequence-parallel mesh hint) has no
+    counterpart on one card."""
+    with plain_kernels():
+        logits, aux = model_forward(cfg, params, tokens=batch.get("tokens"),
+                                    inputs_embeds=batch.get("inputs_embeds"),
+                                    positions=batch.get("positions"), remat=remat)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    ce = F.cross_entropy(logits.flatten(0, -2), batch["labels"].flatten().long())
+    if cfg.router_aux_loss:
+        ce = ce + cfg.router_aux_loss * aux
+    return ce
 
 
 def last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -351,8 +414,8 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 state["v"][gi] = cv
     else:
         cap = b * s * cfg.moe_top_k if cfg.family == "moe" else None
-        for i in range(cfg.n_layers):
-            x, ck, cv, _ = _attn_block(cfg, _layer(params["layers"], i), x, positions, cap)
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            x, ck, cv, _ = _attn_block(cfg, lp, x, positions, cap)
             state["k"][i] = ck
             state["v"][i] = cv
     x_last = x[torch.arange(b, device=dev), lengths - 1]  # (B, D)
@@ -387,7 +450,7 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
                 x = _decode_attn_block(cfg, params["shared"], x, state["k"][g],
                                        state["v"][g], pos)
     else:
-        for i in range(cfg.n_layers):
-            x = _decode_attn_block(cfg, _layer(params["layers"], i), x,
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            x = _decode_attn_block(cfg, lp, x,
                                    state["k"][i], state["v"][i], pos, moe_cap)
     return last_logits(cfg, params, x[:, 0]), state

@@ -14,6 +14,12 @@
   admission.
 * ``ServeEngine`` — the batch API, a thin wrapper over the engine.
 
+With tracing on (``repro_torch.obs.trace``), each admission records a
+``serve.admit_group`` instant, a ``serve.prefill`` span and a
+``serve.ttft`` instant per request, and each decode step a
+``serve.decode`` span, with the JAX engine's names and fields; off, each
+costs one attribute check.
+
 Bitwise scheduler-equivalence: every per-slot computation is
 row-independent at fixed shapes (per-row positions, the causal mask over
 right-padded prompts, one ``torch.Generator`` per temperature row), so a
@@ -43,6 +49,7 @@ from ..models.model import (
     prefill_forward,
 )
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from .scheduler import Request, Scheduler
 
 _NO_EOS = -1  # sentinel: sampled ids are always >= 0, so -1 never matches
@@ -286,7 +293,8 @@ class ContinuousBatchingEngine:
                 gen.manual_seed(req.seed)
             self._gens[s] = gen
         t0 = self.clock()
-        packed = self._admit_step([s for s, _ in plan], ptoks, plens, budget, eos)
+        with _trace.span("serve.prefill", rows=len(plan), pad=P):
+            packed = self._admit_step([s for s, _ in plan], ptoks, plens, budget, eos)
         first, done0 = packed[0], packed[1].astype(bool)
         t1 = self.clock()
         self._counters["prefill_steps"].inc()
@@ -297,14 +305,19 @@ class ContinuousBatchingEngine:
             req.tokens.append(int(first[s]))
             self._counters["tokens_generated"].inc()
             self._ttft.observe(t1 - req.arrival_t)
+            if _trace.enabled:
+                _trace.instant("serve.ttft", rid=req.rid, slot=s,
+                               ttft_ms=(t1 - req.arrival_t) * 1e3)
             if done0[s]:
                 req.finish_t = t1
                 finished.append(self.sched.retire(s))
 
     def _do_decode(self, finished):
         t0 = self.clock()
-        packed = self._decode_step(self.sched.active_slots())
-        tok, was, done = packed[0], packed[1].astype(bool), packed[2].astype(bool)
+        with _trace.span("serve.decode", slots=self.slots) as sp:
+            packed = self._decode_step(self.sched.active_slots())
+            tok, was, done = packed[0], packed[1].astype(bool), packed[2].astype(bool)
+            sp.set(active=int(was.sum()))
         t1 = self.clock()
         n_active = 0
         for s in range(self.slots):
@@ -329,6 +342,9 @@ class ContinuousBatchingEngine:
         finished: list[Request] = []
         plan = self.sched.plan_admissions()
         if plan:
+            if _trace.enabled:
+                _trace.instant("serve.admit_group", rows=len(plan),
+                               queued=len(self.sched.queue))
             self._do_admit(plan, finished)
         if self.sched.active_slots():
             self._do_decode(finished)

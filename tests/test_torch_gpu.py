@@ -22,7 +22,12 @@ unit of roundoff of the terms.  They differ by up to 1.5 eps at fp32
 itself can cancel to near 0.  The MoE path runs no kernel of its own
 (its expert products are ``torch.bmm``); on the card it is held to its
 CPU run at fp32 with the fp32 tolerance, shows no host sync in a decode
-step, and launches rmsnorm and flash where the model says.
+step, and launches rmsnorm and flash where the model says.  A train step
+(remat on, so the backward recomputes each layer on autograd's device
+thread) runs the kernels' plain versions: it is held to the same step on
+the CPU (loss and grad norm to 1e-4 relative; parameters as
+``test_torch_train.py`` holds them to JAX: at most 1e-4 of the entries
+beyond 1e-5, none beyond 4 LR) and launches no kernel.
 """
 
 import pytest
@@ -419,3 +424,34 @@ def test_moe_prefill_and_decode_launch_the_kernels(cuda):
     before = [m.launches for m in mods]
     decode_step(cfg, params, pstate, tokens[:, :1], lengths - 1, moe_cap=b * cfg.moe_top_k)
     assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b", "zamba2-2.7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig, leaves
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).reduced()
+    cpu = init_params(cfg, 6, dtype=torch.float32, device="cpu")
+    gpu = _to(cpu, cuda)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    fn = make_train_step(cfg, opt)
+    cs, gs = init_opt_state(cfg, cpu), init_opt_state(cfg, gpu)
+    mods = (rn, fa, ss, st)
+    before = [m.launches for m in mods]
+    for step in range(2):
+        cpu, cs, cm = fn(cpu, cs, synthetic_batch(cfg, 4, 16, step, device="cpu"))
+        gpu, gs, gm = fn(gpu, gs, synthetic_batch(cfg, 4, 16, step, device=cuda))
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(gm[key].cpu(), cm[key], rtol=1e-4, atol=0)
+    assert [m.launches for m in mods] == before
+    assert int(gs["step"]) == 2
+    diffs = torch.cat([(g.cpu() - c).abs().flatten() for g, c in zip(leaves(gpu), leaves(cpu))])
+    assert float(diffs.max()) <= 4 * opt.lr
+    assert float((diffs > 1e-5).float().mean()) <= 1e-4
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -20,6 +20,8 @@ from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch.configs import hpcc as port_hpcc  # noqa: E402
 from repro_torch.models import init_params, param_shapes  # noqa: E402
 from repro_torch.serve import ContinuousBatchingEngine, ServeEngine  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.train.data import synthetic_batch  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -34,7 +36,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.serve, repro_torch.kernels\n"
         "import repro_torch.models, repro_torch.weights, repro_torch.obs\n"
-        "import repro_torch.configs.hpcc\n"
+        "import repro_torch.configs.hpcc, repro_torch.core, repro_torch.train\n"
+        "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
         "print(bad)\n"
@@ -114,6 +117,10 @@ def test_entry_points_refuse_cuda_without_a_card():
         ServeEngine(cfg, params, max_seq=16).generate([[1, 2]], max_new=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"embed": params["embed"].numpy()})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_batch(cfg, 2, 8, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "gemma-2b", "--reduced", "--steps", "1"])
 
 
 def test_engine_refuses_an_unsupported_device():
@@ -134,7 +141,8 @@ def _code_without_docstrings(path):
     return ast.dump(tree)
 
 
-COPIES = ["models/config.py", "serve/scheduler.py", "obs/metrics.py",
+COPIES = ["models/config.py", "serve/scheduler.py", "obs/metrics.py", "obs/trace.py",
+          "core/pitfalls.py", "core/dmap.py", "core/redist.py",
           "configs/__init__.py", "configs/hpcc.py"] + [
     f"configs/{a.replace('-', '_').replace('.', '_')}.py" for a in ARCHS
 ]

@@ -12,9 +12,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from _torch_parity import shared_params  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.obs import trace as jax_trace  # noqa: E402
 from repro.serve import ContinuousBatchingEngine as JaxEngine  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import init_params, model_forward  # noqa: E402
+from repro_torch.obs import trace as port_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     ContinuousBatchingEngine,
     QueueFull,
@@ -208,3 +210,35 @@ def test_moe_engine_runs_the_drop_free_caps(monkeypatch):
     _drive(_port_engine(cfg, params))
     k, slots, pad = cfg.moe_top_k, _GEO["slots"], _GEO["prefill_pad"]
     assert set(caps) == {(slots * pad, slots * pad * k), (slots, slots * k)}
+
+
+def _traced(trace_mod, run):
+    """The (name, phase, fields) of the events ``run()`` records, with
+    each instant's ``ttft_ms`` (a host time) reduced to its presence."""
+    trace_mod.enable_trace()
+    trace_mod.reset_trace()
+    try:
+        run()
+    finally:
+        trace_mod.disable_trace()
+    events = []
+    for name, ph, _, _, attrs in trace_mod.events():
+        attrs = dict(attrs or {})
+        if "ttft_ms" in attrs:
+            attrs["ttft_ms"] = attrs["ttft_ms"] >= 0
+        events.append((name, ph, attrs))
+    return events
+
+
+def test_engine_spans_equal_the_jax_engines():
+    """On the same requests the port's engine records the JAX engine's
+    spans and instants, in the same order, with the same fields."""
+    arch = "gemma-2b"
+    jp, tp = shared_params(jax_config(arch).reduced(), seed=0)
+    jeng = JaxEngine(jax_config(arch).reduced(), jp, state_dtype=jnp.float32, **_GEO)
+    peng = _port_engine(port_config(arch).reduced(), tp)
+    want = _traced(jax_trace, lambda: _drive(jeng))
+    got = _traced(port_trace, lambda: _drive(peng))
+    names = {n for n, _, _ in want}
+    assert names == {"serve.admit_group", "serve.prefill", "serve.ttft", "serve.decode"}
+    assert got == want
