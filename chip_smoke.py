@@ -25,13 +25,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
-   the least time the card needs; rmsnorm at the five shapes the serve
-   paths run, each beside an empty kernel of its grid and block
-   (``floor_ms``) and with its layout; flash at each serve path's prefill
-   (``prefill``, ``hybrid_prefill``, ``moe_prefill``) and at S = 4096 for
-   gemma and zamba2 (``long_prefill``, ``hybrid_long_prefill``), with its
-   tile, grid and host time per call; the SSD scan at zamba2-2.7b's prefill and at a
-   4096-token prompt (``hybrid_long_prefill``), each with its bound share;
+   the least time the card needs; rmsnorm at the six shapes the serve
+   paths run (the sixth fp32: rwkv6's ``ln_x`` at decode), each beside
+   an empty kernel of its grid and block (``floor_ms``) and with its
+   layout; flash at each serve path's prefill (``prefill``,
+   ``hybrid_prefill``, ``moe_prefill``) and at S = 4096 for gemma and
+   zamba2 (``long_prefill``, ``hybrid_long_prefill``), with its tile,
+   grid and host time per call; the SSD scan at zamba2-2.7b's prefill
+   and at a 4096-token prompt (``hybrid_long_prefill``), each with its bound share;
    the triad at 2^20 (the HPCC config's size) and at 2^26 elements (each
    array 4x the 50 MB L2).
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
@@ -57,15 +58,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    products are ``torch.bmm`` at the drop-free capacities (no Pallas
    kernel in the reference), and the profile gives their device time a
    decode step beside the time to read every expert's weights once.
-9. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
+9. serve_ssm: the same for full-width rwkv6-1.6b (24 RWKV-6 layers,
+   attention-free): every prefill and decode step launches rmsnorm 73
+   times (ln1, ln2 and the time mix's ``ln_x`` a layer, fp32 at decode,
+   and the head) and nothing else; the WKV recurrence is torch ops (no
+   Pallas kernel in the reference), and the profile gives the device
+   time a decode step spends widening the bf16 weights to fp32 for the
+   products, as JAX's type promotion computes them.
+10. parity: gemma-2b at full width cut to 2 layers, fp32, the same weights
    on the card (kernels) and on the CPU (plain versions): prefill and 8
    teacher-forced decode steps give the same logits within tolerance.
-10. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
+11. parity_hybrid: zamba2-2.7b at full width cut to one group (6 Mamba2
    layers and the shared block), the same way: prefill logits, the conv
    and SSM states, and 8 decode steps.
-11. parity_moe: deepseek-moe-16b at full width cut to 2 layers, the same
+12. parity_moe: deepseek-moe-16b at full width cut to 2 layers, the same
    way: prefill logits and 8 decode steps.
-12. train: full-width gemma-2b (2,506,172,416 parameters) trained 10 steps
+13. parity_ssm: rwkv6-1.6b at full width cut to 2 layers, the same way
+   over two 64-token chunks: prefill logits, the shift and WKV states,
+   and 8 decode steps.
+14. parity_vl: qwen2-vl-72b at full width (d_model 8192, 64/8 heads of
+   128, M-RoPE) cut to 1 layer (72.7 B parameters do not fit one card;
+   the cut holds 3.37 B, 13.5 GB in fp32), the same way: the card's run
+   of M-RoPE and of flash at a GQA group of 8.
+15. train: full-width gemma-2b (2,506,172,416 parameters) trained 10 steps
    through the port's loop (``repro_torch.launch.train.train_loop``):
    fp32 params from seed 0, batch 4, seq 128, remat on, no checkpoint.
    Each step's loss (finite, the last below the first), grad norm, lr
@@ -74,12 +89,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    launch counters before and after, which must not move (training runs
    the kernels' plain versions); then one more step under torch.profiler
    (device busy, top kernels and ops).
-13. train_resume: the training CLI's ``main`` at ``--reduced`` for
-   gemma-2b, deepseek-moe-16b and zamba2-2.7b on the card: 6 steps with
-   a checkpoint every 2, the restored trees equal bit for bit to the
+16. train_resume: the training CLI's ``main`` at ``--reduced`` for
+   gemma-2b, deepseek-moe-16b, zamba2-2.7b and rwkv6-1.6b on the card:
+   6 steps with a checkpoint every 2, the restored trees equal bit for bit to the
    saved ones, and a resume from the step-4 checkpoint giving the
    uninterrupted run's losses within 1e-5.
-14. parity_train: gemma-2b at full width cut to 2 layers, fp32, the same
+17. parity_train: gemma-2b at full width cut to 2 layers, fp32, the same
    weights on the card and on the CPU: loss, grad norm and parameters
    after 2 train steps.
 
@@ -127,7 +142,8 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 # to 16384 terms summed in another order on each device move logits of
 # size ~1..5 by ~1e-5; a fault in a kernel moves them by far more.  The
 # same holds for zamba2's one group (reductions of 2560 to 10240 terms)
-# and for deepseek-moe's 2 layers (2048 to 2816 terms).
+# and for deepseek-moe's 2 layers (2048 to 2816 terms), rwkv6's 2 layers
+# (2048 to 7168) and qwen2-vl's one layer (8192 to 29568).
 PARITY_TOL = 1e-3
 # The triad, elementwise: |got - want| <= 4 eps (|b| + |s| |c|), with
 # eps = 2^-23 at fp32 (its machine epsilon, two units of roundoff) and
@@ -152,7 +168,7 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe"),
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe", "serve_ssm"),
     },
     "flash_attention": {
         "route": "cuda",
@@ -524,10 +540,13 @@ def time_flash(gen, moe_gen) -> dict:
 
 
 # rmsnorm's time rows: every shape the serve paths run, bf16 (gemma-2b
-# at d_model 2048; zamba2-2.7b at d_model 2560 and its gate norm at
-# d_inner 5120), prefill of 4 slots x 128 and decode of 4 slots
+# and rwkv6-1.6b at d_model 2048; zamba2-2.7b at d_model 2560 and its gate
+# norm at d_inner 5120), prefill of 4 slots x 128 and decode of 4 slots
+# (``benchmarks/rmsnorm_ab_torch.py`` times these too); and fp32,
+# rwkv6-1.6b's ``ln_x`` at decode (the time mix's fp32 output)
 RMS_ROWS = (("prefill", 512, 2048), ("decode", 4, 2048), ("hybrid_gate_prefill", 512, 5120),
             ("hybrid_decode", 4, 2560), ("hybrid_gate_decode", 4, 5120))
+RMS_FP32_ROWS = (("ssm_ln_x_decode", 4, 2048),)
 
 
 def rms_sets(gen, m: int, d: int, n: int = 24, dtype=torch.bfloat16) -> list:
@@ -558,17 +577,18 @@ def time_rmsnorm(gen) -> dict:
     from repro_torch.kernels import rmsnorm as rn
 
     rows = {}
-    for label, m, d in RMS_ROWS:
-        sets = rms_sets(gen, m, d)
+    for label, m, d, dtype in ([(*r, torch.bfloat16) for r in RMS_ROWS]
+                               + [(*r, torch.float32) for r in RMS_FP32_ROWS]):
+        sets = rms_sets(gen, m, d, dtype=dtype)
         lib_sets = [(x, (1.0 + w).to(x.dtype)) for x, w in sets]
-        lay = rn.layout(d, torch.bfloat16)  # one block a row
+        lay = rn.layout(d, dtype)  # one block a row
         row = rows[label] = {
-            "shape": [m, d], "dtype": "bfloat16", "layout": lay,
+            "shape": [m, d], "dtype": str(dtype).removeprefix("torch."), "layout": lay,
             "ms": device_ms(rn.rmsnorm, sets),
             "plain_ms": device_ms(rn.rmsnorm_plain, sets),
             "library_ms": device_ms(lambda x, w1, d=d: F.rms_norm(x, (d,), w1, 1e-5), lib_sets),
             "floor_ms": rms_floor_ms(rn, m, lay["threads_per_row"]),
-            **rms_bound(m, d, torch.bfloat16),
+            **rms_bound(m, d, dtype),
         }
         row.update(bound_share=row["bound_ms"] / row["ms"],
                    ms_minus_floor=row["ms"] - row["floor_ms"],
@@ -644,13 +664,21 @@ def phase_time(card: dict) -> dict:
     return times
 
 
+def _ssm_weight_shapes(cfg) -> set:
+    """The shapes of an RWKV-6 layer's matrices (the decay LoRA's rank 64)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {(d, d), (d, f), (f, d), (d, 64), (64, d)}
+
+
 def _device_time(prof, cfg) -> dict:
     """Device-side events of a profile (kernels, copies; the CPU ops that
     launch them report the same device time again): (name, calls, us)
     rows, busy seconds, the same rows for the CPU ops by the device time
-    of the kernels each launches itself (``ops``), and for a MoE model the
+    of the kernels each launches itself (``ops``), for a MoE model the
     calls and us of the expert products, the ``aten::bmm`` calls whose
-    second operand is an (E, D, F) or (E, F, D) expert stack."""
+    second operand is an (E, D, F) or (E, F, D) expert stack, and for an
+    ssm model those of the weights' widening to fp32, the
+    ``aten::_to_copy`` calls on a layer's matrix."""
     from torch.autograd import DeviceType
 
     rows, ops = [], []
@@ -667,6 +695,13 @@ def _device_time(prof, cfg) -> dict:
                and list(ev.input_shapes[1]) in ([e, d, f], [e, f, d])]
         out.update(expert_calls=sum(ev.count for ev in bmm),
                    expert_us=sum(ev.device_time_total for ev in bmm))
+    if cfg.family == "ssm":
+        shapes = _ssm_weight_shapes(cfg)
+        widen = [ev for ev in prof.key_averages(group_by_input_shape=True)
+                 if ev.key == "aten::_to_copy" and ev.input_shapes
+                 and tuple(ev.input_shapes[0]) in shapes]
+        out.update(widen_calls=sum(ev.count for ev in widen),
+                   widen_us=sum(ev.device_time_total for ev in widen))
     return out
 
 
@@ -677,23 +712,24 @@ def _profile_decode(eng, steps: int = 8) -> dict:
     sum of the kernels' and copies' own device time; the profiler's host
     cost inflates the wall time, so the idle share is an upper bound.
     For a MoE model also the expert products' device time (input shapes
-    recorded for it alone)."""
+    recorded for it alone); for an ssm model the device time of widening
+    the bf16 weights to fp32 (input shapes recorded for it)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
-    moe = cfg.family == "moe"
+    shapes = cfg.family in ("moe", "ssm")
     for i in range(eng.slots):
         eng.submit([1 + i, 2 + i, 3 + i], max_new=steps + 4)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=moe) as prof:
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         eng.step()  # the admission prefill
         torch.cuda.synchronize()
         admit_wall = time.perf_counter() - t0
     admit = _device_time(prof, cfg)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=moe) as prof:
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -715,7 +751,12 @@ def _profile_decode(eng, steps: int = 8) -> dict:
                            "device_busy_ms": admit["busy_s"] * 1e3,
                            "device_calls": sum(r[1] for r in admit["rows"])},
     }
-    if moe:
+    if cfg.family == "ssm":
+        out.update(widen_calls_per_step=dec["widen_calls"] / steps,
+                   widen_ms_per_step=dec["widen_us"] * 1e-3 / steps,
+                   widen_share_of_busy=dec["widen_us"] * 1e-6 / busy_s)
+        out["admission_step"].update(widen_ms=admit["widen_us"] * 1e-3)
+    if cfg.family == "moe":
         out.update(expert_products_calls_per_step=dec["expert_calls"] / steps,
                    expert_products_ms_per_step=dec["expert_us"] * 1e-3 / steps,
                    expert_products_share_of_busy=dec["expert_us"] * 1e-6 / busy_s)
@@ -734,8 +775,12 @@ def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
     """Launches of each kernel that a serve run of ``cfg`` must make:
     rmsnorm twice per layer and once for the head at every step (a hybrid
     layer's ln and gate norm; two per shared block; a dense or MoE layer's
-    ln1 and ln2), flash once per attention block per prefill, the SSD scan
-    once per Mamba2 layer per prefill, the triad never."""
+    ln1 and ln2; an ssm layer's ln1, ln2 and the time mix's ln_x, three),
+    flash once per attention block per prefill, the SSD scan once per
+    Mamba2 layer per prefill, the triad never."""
+    if cfg.family == "ssm":
+        return {"rmsnorm": (3 * cfg.n_layers + 1) * (prefill_steps + decode_steps),
+                "flash_attention": 0, "ssd_scan": 0, "stream_triad": 0}
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.hybrid_attn_every
         return {"rmsnorm": (2 * cfg.n_layers + 2 * groups + 1) * (prefill_steps + decode_steps),
@@ -878,6 +923,18 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
                               "decode": geo["slots"] * k},
                  "expert_weight_bytes": w,
                  "expert_weight_read_bound_ms": w / HBM_BYTES_PER_S * 1e3}
+    if cfg.family == "ssm":
+        from repro_torch.train.optimizer import leaves
+
+        # every layer matrix (the stacked 3-D leaves) widened to fp32 once
+        # a step (read 2 bytes, write 4) and the fp32 copy read by the
+        # product: the least a decode step of JAX's promoted products
+        # moves, beside the bf16 weights read once
+        n = sum(p.numel() for p in leaves(params["layers"]) if p.dim() == 3)
+        extra = {"layer_weight_elems": n,
+                 "widen_bound_ms": 6 * n / HBM_BYTES_PER_S * 1e3,
+                 "widened_read_bound_ms": 4 * n / HBM_BYTES_PER_S * 1e3,
+                 "bf16_weight_read_bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3}
     out = {
         "card": card["nvidia_smi"], "model": cfg.name, "dtype": "bfloat16",
         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -904,10 +961,12 @@ def _to_cpu(tree: dict) -> dict:
     return {k: _to_cpu(v) if isinstance(v, dict) else v.to("cpu") for k, v in tree.items()}
 
 
-def phase_parity(cfg, phase: str = "parity", s: int = 16, short: int = 9) -> dict:
+def phase_parity(cfg, phase: str = "parity", s: int = 16, short: int = 9,
+                 cut: str | None = None) -> dict:
     """``cfg`` in fp32 with the same weights on the card (kernels) and on
     the CPU (plain versions): prefill logits and decode state of two rows
-    (one right-padded to ``short``), then 8 teacher-forced decode steps."""
+    (one right-padded to ``short``), then 8 teacher-forced decode steps.
+    ``cut`` says how and why ``cfg`` was cut from the full model."""
     from repro_torch.models import decode_step, init_decode_state, init_params, prefill_forward
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -942,6 +1001,7 @@ def phase_parity(cfg, phase: str = "parity", s: int = 16, short: int = 9) -> dic
             for g, c in zip(runs["cuda"][0], runs["cpu"][0])]
     state_errs = {k: max_err(v, runs["cpu"][1][k], PARITY_TOL) for k, v in runs["cuda"][1].items()}
     out = {"model": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": cfg.param_count(), **({"cut": cut} if cut else {}),
            "dtype": "float32", "tf32": [torch.backends.cuda.matmul.allow_tf32,
                                         torch.backends.cudnn.allow_tf32],
            "seq": s, "lengths": lengths.tolist(),
@@ -1070,7 +1130,7 @@ def phase_train(card: dict, steps: int = 10, batch: int = 4, seq: int = 128) -> 
     return out
 
 
-TRAIN_ARCHS = ("gemma-2b", "deepseek-moe-16b", "zamba2-2.7b")
+TRAIN_ARCHS = ("gemma-2b", "deepseek-moe-16b", "zamba2-2.7b", "rwkv6-1.6b")
 # resumed vs uninterrupted losses on the card: the same arithmetic, but
 # the embedding backward and the MoE scatter accumulate with atomics in
 # any order, so the fp32 losses of a 6-step run of a reduced config may
@@ -1230,11 +1290,17 @@ def main() -> int:
     paths = {"stream": phase_stream(card),
              "serve": phase_serve(card, "gemma-2b", "serve"),
              "serve_hybrid": phase_serve(card, "zamba2-2.7b", "serve_hybrid"),
-             "serve_moe": phase_serve(card, "deepseek-moe-16b", "serve_moe")}
+             "serve_moe": phase_serve(card, "deepseek-moe-16b", "serve_moe"),
+             "serve_ssm": phase_serve(card, "rwkv6-1.6b", "serve_ssm")}
     phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2), "parity")
     phase_parity(dataclasses.replace(get_config("zamba2-2.7b"), n_layers=6,
                                      hybrid_attn_every=6), "parity_hybrid", s=64, short=37)
     phase_parity(dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=2), "parity_moe")
+    phase_parity(dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2), "parity_ssm",
+                 s=128, short=37)
+    phase_parity(dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1), "parity_vl",
+                 cut="n_layers 80 -> 1: 72.7 B parameters (291 GB in fp32) do not fit one "
+                     "card; the full width is kept")
     phase_train(card)
     phase_train_resume(card)
     phase_parity_train(dataclasses.replace(get_config("gemma-2b"), n_layers=2), card)

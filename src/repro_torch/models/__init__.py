@@ -1,4 +1,4 @@
-"""Model zoo in PyTorch: the dense, MoE and hybrid families so far (the
+"""Model zoo in PyTorch: the dense, MoE, ssm (RWKV-6) and hybrid families (the
 port of ``repro.models``), parameterized by ``ModelConfig``: forward,
 training loss, prefill and decode."""
 

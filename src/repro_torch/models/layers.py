@@ -46,28 +46,58 @@ def _device_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Te
     return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, Dh); positions: (B, S) integer."""
+def _rotate_halves(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, Dh) rotated by the (B, S, Dh/2) angles, in x's dtype."""
     half = x.shape[-1] // 2
-    freqs = _device_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs  # (B, S, half)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) integer."""
+    freqs = _device_freqs(x.shape[-1], theta, x.device)
+    return _rotate_halves(x, positions[..., None].float() * freqs)
+
+
+@functools.cache
+def _mrope_streams(half: int, sections: tuple, device: torch.device) -> torch.Tensor:
+    """The position stream (0 t, 1 h, 2 w) of each half-dim slot, made once
+    per device.  Sections past ``half`` are clipped as NumPy slices clip
+    them (a head narrower than the sections takes stream 0 throughout)."""
+    sec = np.zeros(half, dtype=np.int64)
+    s0, s1, s2 = sections
+    sec[s0: s0 + s1] = 1
+    sec[s0 + s1: s0 + s1 + s2] = 2
+    return torch.as_tensor(sec, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: three position streams (t, h, w) rotate
+    disjoint sections of the head dim.  x: (B, S, H, Dh); positions3:
+    (3, B, S) integer.  Three equal streams reduce to ``apply_rope``."""
+    freqs = _device_freqs(x.shape[-1], theta, x.device)
+    sel = _mrope_streams(x.shape[-1] // 2, tuple(sections), x.device)
+    # slot j of the (B, S, half) angles takes stream sel[j]
+    return _rotate_halves(x, positions3.float()[sel].movedim(0, -1) * freqs)
+
+
 def positions_for(cfg: ModelConfig, batch: int, seq: int, device=None) -> torch.Tensor:
+    """(B, S) positions 0..S-1; for M-RoPE the same in each of the three
+    streams, (3, B, S) (text-only inputs)."""
+    pos = torch.arange(seq, dtype=torch.int64, device=device).expand(batch, seq)
     if cfg.pos_embedding == "mrope":
-        raise NotImplementedError("mrope positions are not ported yet")
-    return torch.arange(seq, dtype=torch.int64, device=device).expand(batch, seq)
+        return pos.expand(3, batch, seq)
+    return pos
 
 
 def _rotate(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if cfg.pos_embedding == "rope":
         return apply_rope(x, positions, cfg.rope_theta)
     if cfg.pos_embedding == "mrope":
-        raise NotImplementedError("mrope (qwen2-vl) is not ported yet")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return x
 
 
@@ -120,7 +150,8 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """One-token decode against a KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_max, KH, Dh); pos: scalar current
-    index or (B,) per-row positions.  Returns (out, cache_k, cache_v).
+    index or (B,) per-row positions (M-RoPE: the same in all three
+    streams).  Returns (out, cache_k, cache_v).
     The new K/V row is written into the caches *in place* (the JAX layer
     returns new arrays); a row whose position is past the cache writes
     nothing, as JAX's masked select does."""
@@ -128,7 +159,10 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     smax = cache_k.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device).expand(b)
-    q, k, v = _qkv(cfg, p, x, pos[:, None])
+    posb = pos[:, None]
+    if cfg.pos_embedding == "mrope":
+        posb = posb.expand(3, b, 1)
+    q, k, v = _qkv(cfg, p, x, posb)
 
     rows = torch.arange(b, device=x.device)
     idx = pos.clamp(max=smax - 1)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..kernels.ops import ssd
 from .config import ModelConfig
 from .layers import rms_norm
@@ -123,13 +124,14 @@ def mamba2_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def mamba2_decode_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                        device=None) -> dict:
+                        device="cuda") -> dict:
+    dev = resolve_device(device)
     h = cfg.ssm_heads
     ph = cfg.d_inner // h
     return {
-        "conv": torch.zeros((batch, CONV_K - 1, cfg.d_inner), dtype=dtype, device=device),
+        "conv": torch.zeros((batch, CONV_K - 1, cfg.d_inner), dtype=dtype, device=dev),
         "ssm": torch.zeros((batch, h, ph, cfg.ssm_state), dtype=torch.float32,
-                           device=device),
+                           device=dev),
     }
 
 

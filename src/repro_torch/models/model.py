@@ -1,9 +1,8 @@
 """Model assembly in PyTorch: param shapes/init, forward, loss, prefill,
 decode.
 
-The port of ``repro.models.model`` for the dense, MoE and hybrid (Zamba2)
-families; ssm raises ``NotImplementedError`` until its slice.
-Parameters keep the JAX package's tree: a dict whose ``layers`` leaves
+The port of ``repro.models.model`` for all four families: dense, MoE,
+ssm (RWKV-6) and hybrid (Zamba2).  Parameters keep the JAX package's tree: a dict whose ``layers`` leaves
 are stacked on a leading L axis (hybrid: (groups, every) axes, plus the
 weight-shared ``shared`` block), so ``repro_torch.weights`` maps the
 reference's params leaf for leaf.  A Python loop over the layer (hybrid:
@@ -44,21 +43,25 @@ from .mamba2 import (
     mamba2_prefill,
 )
 from .moe import moe_ffn, moe_param_shapes
+from .rwkv6 import (
+    rwkv6_channel_mix,
+    rwkv6_channel_mix_step,
+    rwkv6_param_shapes,
+    rwkv6_time_mix,
+    rwkv6_time_mix_step,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter shapes & init
 # ---------------------------------------------------------------------------
 
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_FAMILIES)})"
-        )
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def _attn_block_shapes(cfg: ModelConfig) -> dict:
@@ -75,10 +78,12 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return {"ln": (cfg.d_model,), "mix": mamba2_param_shapes(cfg)}
+    d = cfg.d_model
     if cfg.family == "moe":
-        d = cfg.d_model
         return {"ln1": (d,), "attn": attn_param_shapes(cfg), "ln2": (d,),
                 "moe": moe_param_shapes(cfg)}
+    if cfg.family == "ssm":
+        return {"ln1": (d,), "ln2": (d,), **rwkv6_param_shapes(cfg)}
     return _attn_block_shapes(cfg)
 
 
@@ -134,11 +139,10 @@ SLICED_DRAW_ELEMS = 2**31
 
 def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
                device: torch.device) -> torch.Tensor:
-    """``repro.models.model._init_leaf``'s name rules for the dense, MoE
-    and hybrid trees: the SSM leaves' fixed fp32 values (broadcast over
-    the stacked lead dims), zero fp32 norm weights, zero biases, fan-in
-    normal matrices (the router and the (L, E, D, F) expert leaves
-    too)."""
+    """``repro.models.model._init_leaf``'s name rules: the SSM and RWKV
+    leaves' fixed fp32 values (broadcast over the stacked lead dims), zero
+    fp32 norm weights, zero biases, fan-in normal matrices (the router and
+    the (L, E, D, F) expert leaves too)."""
     if name == "A_log":
         base = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32))
         return base.to(device).expand(shape).contiguous()
@@ -147,8 +151,12 @@ def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
                                       dtype=torch.float64))
         base = torch.log(torch.expm1(dt)).to(torch.float32)
         return base.to(device).expand(shape).contiguous()
-    if name == "D_skip":
+    if name in ("D_skip", "u"):
         return torch.ones(shape, dtype=torch.float32, device=device)
+    if name.startswith("mu_"):
+        return torch.full(shape, 0.5, dtype=torch.float32, device=device)
+    if name == "w0":
+        return torch.full(shape, -5.0, dtype=torch.float32, device=device)
     if name.startswith(("ln", "gate_norm", "final_norm")):
         return torch.zeros(shape, dtype=torch.float32, device=device)  # rms weight is 1 + w
     if name.startswith("b") or len(shape) == 1:
@@ -269,6 +277,12 @@ def _layer_body(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
     return x, aux
 
 
+def _ssm_layer(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
+    """An RWKV-6 layer (time mix, then channel mix; no positions): (x, None)."""
+    x = x + rwkv6_time_mix(cfg, lp["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps))
+    return x + rwkv6_channel_mix(cfg, lp["cm"], rms_norm(x, lp["ln2"], cfg.norm_eps)), None
+
+
 def _hybrid_group(cfg: ModelConfig, layers: list, shared: dict, positions, x: torch.Tensor):
     """One hybrid group: its Mamba2 layers, then the weight-shared block."""
     for lp in layers:
@@ -298,8 +312,9 @@ def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
                                      params["shared"], positions)
             x = _remat(body, x) if remat else body(x)
         return x, aux
+    layer = _ssm_layer if cfg.family == "ssm" else _layer_body
     for lp in _unstack(params["layers"], cfg.n_layers):
-        body = functools.partial(_layer_body, cfg, lp, positions)
+        body = functools.partial(layer, cfg, lp, positions)
         x, layer_aux = _remat(body, x) if remat else body(x)
         if layer_aux is not None:
             aux = aux + layer_aux
@@ -363,6 +378,15 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
             "k": torch.zeros(kv, dtype=dtype, device=dev),
             "v": torch.zeros(kv, dtype=dtype, device=dev),
         }
+    if cfg.family == "ssm":  # fp32 whatever the dtype, as in the reference
+        kk = cfg.rwkv_head_dim
+        shift = (cfg.n_layers, batch, cfg.d_model)
+        return {
+            "tm_shift": torch.zeros(shift, dtype=torch.float32, device=dev),
+            "cm_shift": torch.zeros(shift, dtype=torch.float32, device=dev),
+            "wkv": torch.zeros((cfg.n_layers, batch, cfg.d_model // kk, kk, kk),
+                               dtype=torch.float32, device=dev),
+        }
     kv = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(kv, dtype=dtype, device=dev),
@@ -376,6 +400,8 @@ def decode_state_batch_dims(cfg: ModelConfig) -> dict:
     _require_ported(cfg)
     if cfg.family == "hybrid":
         return {"conv": 2, "ssm": 2, "k": 1, "v": 1}
+    if cfg.family == "ssm":
+        return {"tm_shift": 1, "cm_shift": 1, "wkv": 1}
     return {"k": 1, "v": 1}
 
 
@@ -387,9 +413,12 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     Returns (last-token logits (B, V) float32 with the padded vocab at
     -1e30, decode state): dense and MoE {"k", "v"} of (L, B, S, KH, Dh); hybrid
     also {"conv": (G, E, B, K-1, Di), "ssm": (G, E, B, H, P, N) fp32} with
-    K/V of (G, B, S, KH, Dh).  Pads sit after every real token: the
-    causal mask keeps them out of real rows, their KV rows lie beyond the
-    decode validity mask, and in the SSM they take dt=0 (identity); each
+    K/V of (G, B, S, KH, Dh); ssm {"tm_shift", "cm_shift": (L, B, D),
+    "wkv": (L, B, H, K, K)}, fp32, the shifts each row's normed inputs at
+    its last real token.  Pads sit after every real token: the causal
+    mask keeps them out of real rows, their KV rows lie beyond the decode
+    validity mask, in the SSM they take dt=0 and in the WKV k=0, w=1
+    (identity); each
     row is computed independently of its batch companions (MoE: at the
     drop-free expert capacity ``b * s * top_k``, as the reference runs it)."""
     _require_ported(cfg)
@@ -399,9 +428,11 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     positions = positions_for(cfg, b, s, device=dev)
     lengths = lengths.to(device=dev, dtype=torch.int64)
     state = init_decode_state(cfg, b, s, dtype=state_dtype, device=dev)
+    rows, last = torch.arange(b, device=dev), lengths - 1
+    if cfg.family in ("hybrid", "ssm"):
+        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
     if cfg.family == "hybrid":
         e = cfg.hybrid_attn_every
-        valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
         for gi, ei, lp in _hybrid_layers(cfg, params):
             out, st = mamba2_prefill(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps),
                                      valid, lengths, state_dtype=state_dtype)
@@ -412,14 +443,23 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 x, ck, cv, _ = _attn_block(cfg, params["shared"], x, positions)
                 state["k"][gi] = ck
                 state["v"][gi] = cv
+    elif cfg.family == "ssm":
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            xn1 = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            out, state["wkv"][i] = rwkv6_time_mix(cfg, lp["tm"], xn1, valid=valid,
+                                                  return_state=True)
+            x = x + out
+            xn2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + rwkv6_channel_mix(cfg, lp["cm"], xn2)
+            state["tm_shift"][i] = xn1[rows, last]
+            state["cm_shift"][i] = xn2[rows, last]
     else:
         cap = b * s * cfg.moe_top_k if cfg.family == "moe" else None
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x, ck, cv, _ = _attn_block(cfg, lp, x, positions, cap)
             state["k"][i] = ck
             state["v"][i] = cv
-    x_last = x[torch.arange(b, device=dev), lengths - 1]  # (B, D)
-    return last_logits(cfg, params, x_last), state
+    return last_logits(cfg, params, x[rows, last]), state
 
 
 def _decode_attn_block(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos,
@@ -436,7 +476,8 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
     per-slot positions; ``moe_cap`` overrides the MoE expert capacity
     (serving passes the drop-free ``B * top_k``).  Returns (logits (B, V)
     float32, state): every leaf of ``state`` (KV caches; hybrid conv tails
-    and SSM states) is updated in place and returned."""
+    and SSM states; ssm shift and WKV states) is updated in place and
+    returned."""
     _require_ported(cfg)
     x = _embed(cfg, params, tokens)
     if cfg.family == "hybrid":
@@ -449,6 +490,17 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
             if e == every - 1:
                 x = _decode_attn_block(cfg, params["shared"], x, state["k"][g],
                                        state["v"][g], pos)
+    elif cfg.family == "ssm":
+        h = x[:, 0]
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            layer_state = {"tm_shift": state["tm_shift"][i], "wkv": state["wkv"][i]}
+            out, _, _ = rwkv6_time_mix_step(cfg, lp["tm"], layer_state,
+                                            rms_norm(h, lp["ln1"], cfg.norm_eps))
+            h = h + out
+            out, _ = rwkv6_channel_mix_step(cfg, lp["cm"], state["cm_shift"][i],
+                                            rms_norm(h, lp["ln2"], cfg.norm_eps))
+            h = h + out
+        x = h[:, None]
     else:
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x = _decode_attn_block(cfg, lp, x,

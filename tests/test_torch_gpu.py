@@ -426,7 +426,42 @@ def test_moe_prefill_and_decode_launch_the_kernels(cuda):
     assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, 0, 0, 0]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b", "zamba2-2.7b"])
+def test_ssm_on_the_card_matches_the_cpu_and_launches_rmsnorm(cuda, monkeypatch):
+    """rwkv6 reduced at fp32: a prefill over two chunks with a padded row
+    and two decode steps on the card, against the CPU (logits, and the
+    shift and WKV states to 1e-4 of their largest magnitude).  A prefill and a decode step each launch rmsnorm 3L+1
+    times (ln1, ln2, the time mix's ln_x; the head), fp32 ln_x included
+    at decode, and nothing else."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("rwkv6-1.6b").reduced()
+    cpu = init_params(cfg, 7, dtype=torch.float32, device="cpu")
+    gpu = _to(cpu, cuda)
+    b, s, n = 2, 16, cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(7))
+    lengths = torch.tensor([s, 11])
+    mods = (rn, fa, ss, st)
+    runs = {}
+    for dev, params in (("cpu", cpu), (cuda, gpu)):
+        before = [m.launches for m in mods]
+        logits, state = prefill_forward(cfg, params, tokens.to(dev), lengths.to(dev),
+                                        state_dtype=torch.float32)
+        seq = [logits.cpu()]
+        for t in range(2):
+            logits, state = decode_step(cfg, params, state, tokens[:, t:t + 1].to(dev),
+                                        lengths.to(dev) + t)
+            seq.append(logits.cpu())
+        launched = [m.launches - b0 for m, b0 in zip(mods, before)]
+        runs[str(dev)] = (seq, {k: v.cpu() for k, v in state.items()}, launched)
+    (want, wstate, none), (got, gstate, launched) = runs["cpu"], runs[str(cuda)]
+    assert none == [0, 0, 0, 0] and launched == [3 * (3 * n + 1), 0, 0, 0]
+    tol = TOL[torch.float32]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    for key, w in wstate.items():
+        torch.testing.assert_close(gstate[key], w, rtol=0, atol=tol * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch",["gemma-2b", "deepseek-moe-16b", "zamba2-2.7b", "rwkv6-1.6b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
     from repro_torch.train.data import synthetic_batch
     from repro_torch.train.optimizer import AdamWConfig, leaves

@@ -19,12 +19,15 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 
 # gemma: MQA + gelu-tanh GLU; qwen2 with two kv heads: GQA + qkv bias;
-# nemotron: relu2; musicgen: plain gelu FFN
+# nemotron: relu2; musicgen: plain gelu FFN; qwen2-vl: M-RoPE, its
+# sections cut to the reduced head_dim of 16 (half 8 = 2 + 3 + 3) so that
+# all three position streams are live
 ARCHS = {
     "gemma-2b": {},
     "qwen2-7b": {"n_kv_heads": 2},
     "nemotron-4-15b": {},
     "musicgen-medium": {},
+    "qwen2-vl-72b": {"mrope_sections": (2, 3, 3)},
 }
 
 
@@ -75,7 +78,7 @@ def test_attention_prefill_and_ffn(arch):
 
 
 @pytest.mark.parametrize("per_row", [False, True], ids=["scalar-pos", "row-pos"])
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b", "qwen2-vl-72b"])
 def test_attention_decode(arch, per_row):
     jcfg, tcfg = _cfgs(arch)
     jp, tp = shared_params(jcfg, seed=2)
@@ -107,7 +110,51 @@ def test_attention_decode_past_the_cache_writes_nothing():
     assert not torch.equal(ck[1, 1], before[0][1, 1])  # the in-range row wrote
 
 
-def test_mrope_raises_until_ported():
-    cfg = port_config("qwen2-vl-72b").reduced()
-    with pytest.raises(NotImplementedError):
-        tl.positions_for(cfg, 1, 4)
+# (head_dim, sections): qwen2-vl-72b's heads of 128 (half 64 = 16 + 24
+# + 24); its reduced head_dim of 16 with the default sections, which the
+# reference clips to stream 0 past half = 8; and the reduced sections
+MROPE_CASES = {"hd128": (128, (16, 24, 24)), "hd16_clipped": (16, (16, 24, 24)),
+               "hd16": (16, (2, 3, 3))}
+
+
+@pytest.mark.parametrize("case", sorted(MROPE_CASES))
+def test_apply_mrope_matches_the_reference(case):
+    """Three different position streams (t, h, w), as an image's would be."""
+    dh, sections = MROPE_CASES[case]
+    rng = np.random.default_rng(4)
+    xj, xt = _x(rng, 2, 7, 3, dh)
+    pos = rng.integers(0, 500, (3, 2, 7))
+    assert len({p.tobytes() for p in pos}) == 3
+    got = tl.apply_mrope(xt, torch.from_numpy(pos), 1_000_000.0, sections)
+    want = jl.apply_mrope(xj, jnp.asarray(pos, jnp.int32), 1_000_000.0, sections)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)
+    # equal streams reduce exactly to standard RoPE
+    same = np.broadcast_to(pos[0], pos.shape).copy()
+    torch.testing.assert_close(tl.apply_mrope(xt, torch.from_numpy(same), 1_000_000.0, sections),
+                               tl.apply_rope(xt, torch.from_numpy(pos[0]), 1_000_000.0),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "gemma-2b", "rwkv6-1.6b"])
+def test_positions_for_matches_the_reference(arch):
+    cfg = port_config(arch)
+    got = tl.positions_for(cfg, 3, 5)
+    want = np.asarray(jl.positions_for(jax_config(arch), 3, 5))
+    assert tuple(got.shape) == want.shape == ((3, 3, 5) if arch == "qwen2-vl-72b" else (3, 5))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mrope_attention_with_distinct_streams():
+    """qwen2-vl's attention prefill on (3, B, S) positions whose streams
+    differ: the output and the rotated pre-repeat K/V equal JAX's."""
+    jcfg, tcfg = _cfgs("qwen2-vl-72b")
+    jp, tp = shared_params(jcfg, seed=5)
+    jp, tp = _layer0(jp["layers"])["attn"], _layer0(tp["layers"])["attn"]
+    rng = np.random.default_rng(5)
+    xj, xt = _x(rng, 2, 9, jcfg.d_model)
+    pos = np.sort(rng.integers(0, 40, (3, 2, 9)), axis=-1)
+    got = tl.attention_prefill(tcfg, tp, xt, torch.from_numpy(pos))
+    want = jl.attention_prefill(jcfg, jp, xj, jnp.asarray(pos, jnp.int32))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(np32(g), np32(w), rtol=1e-4, atol=1e-4)

@@ -175,7 +175,7 @@ def test_mamba2_prefill_matches_jax_and_token_by_token_decode():
         np.testing.assert_allclose(np32(gst[key]), np32(wst[key]), **TOL)
 
     # the prefill state is the state a token-by-token decode reaches
-    state = tm.mamba2_decode_state(tcfg, len(lengths))
+    state = tm.mamba2_decode_state(tcfg, len(lengths), device="cpu")
     xt = torch.from_numpy(x)
     for t in range(int(lengths.max())):
         before = {k: v.clone() for k, v in state.items()}
@@ -212,7 +212,7 @@ def test_mamba2_decode_step_matches_jax_in_place():
 def test_param_shapes_and_decode_state_match_jax():
     jcfg, tcfg = _cfgs()
     assert tm.mamba2_param_shapes(tcfg) == jm.mamba2_param_shapes(jcfg)
-    got = tm.mamba2_decode_state(tcfg, 3, dtype=torch.bfloat16)
+    got = tm.mamba2_decode_state(tcfg, 3, dtype=torch.bfloat16, device="cpu")
     want = jm.mamba2_decode_state(jcfg, 3, dtype=jnp.bfloat16)
     for key in ("conv", "ssm"):
         assert tuple(got[key].shape) == want[key].shape

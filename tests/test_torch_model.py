@@ -37,7 +37,9 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 # the -1e30 pad mask is live; qwen2: qkv bias, as reduced (MHA) and GQA;
 # zamba2: the hybrid family (Mamba2 groups and the weight-shared block);
 # deepseek-moe and qwen3-moe: the MoE family, with and without shared
-# experts (qwen3 GQA)
+# experts (qwen3 GQA); rwkv6: the ssm family; qwen2-vl: M-RoPE, with
+# sections that fit the reduced head_dim of 16 (half 8 = 2 + 3 + 3), so
+# that all three position streams are live
 ARCHS = {
     "gemma-2b": {"vocab": 250},
     "qwen2-7b": {},
@@ -45,6 +47,8 @@ ARCHS = {
     "zamba2-2.7b": {},
     "deepseek-moe-16b": {},
     "qwen3-moe-235b-a22b": {},
+    "rwkv6-1.6b": {},
+    "qwen2-vl-72b": {"mrope_sections": (2, 3, 3)},
 }
 MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
@@ -108,8 +112,9 @@ def test_prefill_and_decode_match_jax(name):
     jcfg, tcfg = _cfgs(name)
     jp, tp = shared_params(jcfg, seed=4)
     rng = np.random.default_rng(4)
-    # the hybrid's chunked scan needs S to be a multiple of its chunk (8)
-    b, s, steps = 3, 16 if jcfg.family == "hybrid" else 10, 4
+    # the hybrid's and the ssm's chunked scans need S to be a multiple of
+    # their chunk (8)
+    b, s, steps = 3, 16 if jcfg.family in ("hybrid", "ssm") else 10, 4
     tokens = rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)
     lengths = np.array([s, 3, 7], np.int32)
     for i, n in enumerate(lengths):

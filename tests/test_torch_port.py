@@ -28,7 +28,6 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"]
 ARCHS = jax_configs.ARCH_IDS
-PORTED = [a for a in ARCHS if jax_configs.get_config(a).family in ("dense", "moe", "hybrid")]
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -88,7 +87,7 @@ def test_shapes_and_arch_list_equal_the_reference():
     }
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_param_shapes_equal_the_reference(arch):
     for want_cfg, got_cfg in [
         (jax_configs.get_config(arch), port_configs.get_config(arch)),
@@ -96,12 +95,6 @@ def test_param_shapes_equal_the_reference(arch):
     ]:
         assert param_shapes(got_cfg) == jax_param_shapes(want_cfg)
         assert got_cfg.param_count() == want_cfg.param_count()
-
-
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
-def test_other_families_raise_until_ported(arch):
-    with pytest.raises(NotImplementedError):
-        param_shapes(port_configs.get_config(arch).reduced())
 
 
 def test_entry_points_refuse_cuda_without_a_card():

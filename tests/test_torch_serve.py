@@ -36,6 +36,15 @@ _REQS = [
 DENSE = ["gemma-2b", "minicpm-2b", "musicgen-medium", "nemotron-4-15b", "qwen2-7b"]
 HYBRID = ["zamba2-2.7b"]
 MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
+SSM = ["rwkv6-1.6b"]
+VL = ["qwen2-vl-72b"]
+# qwen2-vl's M-RoPE sections cut to the reduced head_dim of 16 (half 8),
+# so that all three position streams are live
+_OVERRIDES = {"qwen2-vl-72b": {"mrope_sections": (2, 3, 3)}}
+
+
+def _reduced(get_config, arch):
+    return get_config(arch).reduced(**_OVERRIDES.get(arch, {}))
 
 
 def _port_engine(cfg, params, **kw):
@@ -61,21 +70,21 @@ def _drive(eng):
     return [r.tokens for r in live]
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"] + HYBRID + MOE)
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"] + HYBRID + MOE + SSM + VL)
 def test_greedy_tokens_equal_the_jax_engine(arch):
-    jp, tp = shared_params(jax_config(arch).reduced(), seed=0)
-    want = _drive(JaxEngine(jax_config(arch).reduced(), jp,
+    jp, tp = shared_params(_reduced(jax_config, arch), seed=0)
+    want = _drive(JaxEngine(_reduced(jax_config, arch), jp,
                             state_dtype=jnp.float32, **_GEO))
-    got = _drive(_port_engine(port_config(arch).reduced(), tp))
+    got = _drive(_port_engine(_reduced(port_config, arch), tp))
     for r, w, g in zip(_REQS, want, got):
         assert len(g) == r["max_new"]
         if r["temperature"] == 0.0:
             assert g == w, f"{arch}: greedy tokens diverge from the JAX engine"
 
 
-@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE)
+@pytest.mark.parametrize("arch", DENSE + HYBRID + MOE + SSM + VL)
 def test_scheduled_bitwise_matches_isolated(arch):
-    cfg = port_config(arch).reduced()
+    cfg = _reduced(port_config, arch)
     params = init_params(cfg, 0, dtype=torch.float32, device="cpu")
     eng = _port_engine(cfg, params)
     scheduled = _drive(eng)
@@ -162,6 +171,12 @@ def test_hybrid_carry_is_updated_in_place():
     """The hybrid carry's conv tails and SSM states (batch on axis 2)
     are scattered into and stepped in place too."""
     _check_carry_in_place("zamba2-2.7b")
+
+
+def test_ssm_carry_is_updated_in_place():
+    """The ssm carry's shift and WKV states (batch on axis 1, fp32) are
+    scattered into and stepped in place too."""
+    _check_carry_in_place("rwkv6-1.6b")
 
 
 def _check_carry_in_place(arch):

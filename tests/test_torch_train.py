@@ -153,7 +153,7 @@ def test_synthetic_batch_is_bitwise_the_reference(arch):
 # ---------------------------------------------------------------------------
 
 
-LOSS_ARCHS = ["gemma-2b", "deepseek-moe-16b", "zamba2-2.7b"]  # dense, MoE (aux), hybrid
+LOSS_ARCHS = ["gemma-2b", "deepseek-moe-16b", "zamba2-2.7b", "rwkv6-1.6b"]  # dense, MoE (aux), hybrid, ssm
 
 
 @functools.cache
@@ -174,9 +174,10 @@ def test_loss_and_grads_match_jax(arch, remat, monkeypatch):
     _, tp = shared_params(jax_config(arch).reduced(), seed=3)
     batch = data.synthetic_batch(cfg, 2, 16, step=1, device="cpu")
     blocks = []
-    real = port_model._attn_block
-    monkeypatch.setattr(port_model, "_attn_block",
-                        lambda *a, **k: blocks.append(1) or real(*a, **k))
+    for name in ("_attn_block", "_ssm_layer"):
+        real = getattr(port_model, name)
+        monkeypatch.setattr(port_model, name,
+                            lambda *a, real=real, **k: blocks.append(1) or real(*a, **k))
     flat = [p.requires_grad_() for p in leaves(tp)]
     loss = loss_fn(cfg, tp, batch, remat=remat)
     loss.backward()
