@@ -21,7 +21,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    flash at zamba2's head_dim 80, at deepseek-moe-16b's prefill (4, 128,
    16/16, 128) and qwen3-moe's GQA (1, 128, 64/4, 128), and, causal in bf16,
    at a long ragged S = 2000 at head_dims 256 and 80 and at gemma-2b's
-   S = 4096 with the time phase's tile; the triad at lengths 1 to 2^26, three scalars, and views off a
+   S = 4096 with the time phase's tile, and with Gemma-2's logit softcap of
+   50.0 at gemma-2b's (4, 128, 8/1, 256) and (1, 4096, 8/1, 256), its
+   queries scaled by 16 so that the cap bites; the triad at lengths 1 to 2^26, three scalars, and views off a
    16-byte boundary).
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan), at the main paths' shapes, beside
@@ -31,7 +33,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    layout; flash at each serve path's prefill (``prefill``,
    ``hybrid_prefill``, ``moe_prefill``) and at S = 4096 for gemma and
    zamba2 (``long_prefill``, ``hybrid_long_prefill``), with its tile,
-   grid and host time per call; the SSD scan at zamba2-2.7b's prefill
+   grid and host time per call, and capped at 50.0 at gemma-2b's two
+   shapes (``prefill_softcap``, ``long_prefill_softcap``) in the same call
+   as the uncapped rows; the SSD scan at zamba2-2.7b's prefill
    and at a 4096-token prompt (``hybrid_long_prefill``), each with its bound share;
    the triad at 2^20 (the HPCC config's size) and at 2^26 elements (each
    array 4x the 50 MB L2).
@@ -97,6 +101,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 17. parity_train: gemma-2b at full width cut to 2 layers, fp32, the same
    weights on the card and on the CPU: loss, grad norm and parameters
    after 2 train steps.
+18. parity_softcap: gemma-2b cut to 2 layers with Gemma-2's
+   ``attn_logit_softcap`` of 50.0, as ``parity`` (the capped fp32 flash
+   instance on the card).
+19. dist: (a) the torch bridge's self-test (``launch/_torch_selftest``)
+   on a one-rank NCCL group started through ``launch/distributed_init``'s
+   environment path on 127.0.0.1; (b) full-width gemma-2b trained
+   through ``repro_torch.launch.train`` with ``--data-model 1 1`` on that
+   group at the ``train`` phase's settings (fp32, 4 x 128, remat, 10
+   steps): its losses bitwise equal to the ``train`` phase's, its step
+   p50 and peak memory, and, from one profiled step, the NCCL
+   all-reduce's device ms a step with its bytes; (c) ``dist.memmodel.
+   analytic_memory`` for gemma-2b at (1, 1) beside the measured peaks
+   (``train`` at 4 x 128 beside the ``train`` phase's and this phase's,
+   ``decode`` at 4 slots and 512 beside ``serve``'s), with
+   ``param_bytes_per_device`` equal to the served bf16 params' bytes.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -104,9 +123,13 @@ Then the kernels line, and as the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import io
 import json
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -355,6 +378,10 @@ FLASH80_SHAPE = (4, 128, 32, 32, 80)  # B, S, H, KH, D
 # no grouping), and qwen3-moe-235b's GQA heads (64/4, one prompt)
 FLASH_MOE_SHAPE = (4, 128, 16, 16, 128)
 FLASH_QWEN3_SHAPE = (1, 128, 64, 4, 128)
+# Gemma-2's published attn_logit_softcap, and the query scale that makes
+# it bite on unit-normal inputs in the check phase
+GEMMA2_SOFTCAP = 50.0
+SOFTCAP_Q_SCALE = 16.0
 
 
 def phase_check() -> dict:
@@ -370,6 +397,7 @@ def phase_check() -> dict:
     long_gen = torch.Generator(device="cuda").manual_seed(4)
     rows_gen = torch.Generator(device="cuda").manual_seed(5)
     moe_gen = torch.Generator(device="cuda").manual_seed(6)
+    cap_gen = torch.Generator(device="cuda").manual_seed(8)
     # main shapes, bf16; the triad at 2^20 fp32
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
@@ -414,6 +442,21 @@ def phase_check() -> dict:
                             if dtype == torch.bfloat16 else {})})
             if dtype == torch.bfloat16 and (b, s, h, kh, d) == (4, 128, 8, 1, 256):
                 errs["flash_attention"] = err
+        # Gemma-2's logit softcap at gemma-2b's two shapes; q scaled by 16
+        # (logits of std ~16) so that the cap bites: the uncapped plain
+        # version is reported beside, far outside the tolerance
+        for b, s, h, kh, d in ((4, 128, 8, 1, 256), (1, 4096, 8, 1, 256)):
+            q, k, v = (torch.randn(b, s, n, d, generator=cap_gen, device="cuda").to(dtype)
+                       for n in (h, kh, kh))
+            q = (q.float() * SOFTCAP_Q_SCALE).to(dtype)
+            want = fa.attention_plain(q, k, v, softcap=GEMMA2_SOFTCAP)
+            err = max_err(fa.flash_attention(q, k, v, softcap=GEMMA2_SOFTCAP), want, tol)
+            rows.append({"kernel": "flash_attention", "shape": [b, s, h, kh, d],
+                         "dtype": str(dtype), "softcap": GEMMA2_SOFTCAP,
+                         "q_scale": SOFTCAP_Q_SCALE, "max_abs_err": err,
+                         "uncapped_plain_max_abs_diff":
+                             (fa.attention_plain(q, k, v).float() - want.float()).abs().max().item()})
+            del q, k, v, want
         _, _, h, p, n, q = SSD_SHAPE
         # the serve shape, pads, and in bf16 a 4096-token prompt (64 chunks
         # of state carried in the mma kernel's registers)
@@ -512,26 +555,35 @@ def time_flash(gen, moe_gen) -> dict:
     # S = 4096 (gemma-2b's context is 8192, zamba2-2.7b's 4096); 8 rotating
     # sets of 20 and 63 MB at S = 4096.  The MoE row draws from its own
     # generator, so the other rows keep their inputs
-    for label, (b, s, h, kh, d), n_sets, g in (
-            ("prefill", (4, 128, 8, 1, 256), 24, gen),
-            ("hybrid_prefill", FLASH80_SHAPE, 24, gen),
-            ("long_prefill", (1, 4096, 8, 1, 256), 8, gen),
-            ("hybrid_long_prefill", (1, 4096, 32, 32, 80), 8, gen),
-            ("moe_prefill", FLASH_MOE_SHAPE, 24, moe_gen)):
+    # the capped rows (Gemma-2's softcap, the capped instance) come last,
+    # on their own generator, so the other rows keep their inputs; no
+    # single PyTorch call computes a capped attention (library_ms None)
+    cap_gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, (b, s, h, kh, d), n_sets, g, cap in (
+            ("prefill", (4, 128, 8, 1, 256), 24, gen, None),
+            ("hybrid_prefill", FLASH80_SHAPE, 24, gen, None),
+            ("long_prefill", (1, 4096, 8, 1, 256), 8, gen, None),
+            ("hybrid_long_prefill", (1, 4096, 32, 32, 80), 8, gen, None),
+            ("moe_prefill", FLASH_MOE_SHAPE, 24, moe_gen, None),
+            ("prefill_softcap", (4, 128, 8, 1, 256), 24, cap_gen, GEMMA2_SOFTCAP),
+            ("long_prefill_softcap", (1, 4096, 8, 1, 256), 8, cap_gen, GEMMA2_SOFTCAP)):
         sets = [tuple(torch.randn(b, s, n, d, generator=g, device="cuda").to(torch.bfloat16)
                       for n in (h, kh, kh)) for _ in range(n_sets)]
-        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2 products
+        kernel = functools.partial(fa.flash_attention, softcap=cap)
+        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2
+        # products (the capped rows' one tanh a logit is not counted)
         flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
         row = rows[label] = {
-            "shape": [b, s, h, kh, d], "dtype": "bfloat16",
+            "shape": [b, s, h, kh, d], "dtype": "bfloat16", "softcap": cap,
             "tile": fa.tile_config(b, s, h, kh, d), "blocks": fa.grid_blocks(b, s, h, kh, d),
-            "ms": device_ms(fa.flash_attention, sets),
+            "ms": device_ms(kernel, sets),
             # at S = 4096 the plain version's fp32 logits are 0.5-2 GB a
             # call: no yardstick, not timed
-            "plain_ms": device_ms(fa.attention_plain, sets) if s <= 128 else None,
-            "library_ms": device_ms(library, sets),
-            "host_us_per_call": _host_us(fa.flash_attention, sets),
-            "library_host_us_per_call": _host_us(library, sets),
+            "plain_ms": (device_ms(functools.partial(fa.attention_plain, softcap=cap), sets)
+                         if s <= 128 else None),
+            "library_ms": device_ms(library, sets) if cap is None else None,
+            "host_us_per_call": _host_us(kernel, sets),
+            "library_host_us_per_call": _host_us(library, sets) if cap is None else None,
             **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -858,7 +910,12 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
 
     cfg = get_config(arch)
     geo = dict(slots=4, prefill_pad=128, max_seq=512, device="cuda")
+    torch.cuda.reset_peak_memory_stats()  # the peak is this phase's own
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    # init_params draws each leaf in fp32 before its cast: its peak apart
+    # from the serving one
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ContinuousBatchingEngine(cfg, params, **geo)
     eng.submit([1, 2, 3], max_new=2)  # warm-up: first cuBLAS calls, kernel loads
     eng.run()
@@ -909,7 +966,8 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
             raise AssertionError(f"request {i}: tokens alone differ from scheduled")
 
     profile = _profile_decode(eng)
-    peak = torch.cuda.max_memory_allocated()
+    serving_peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, serving_peak)
     card_mem = torch.cuda.get_device_properties(0).total_memory
     if peak >= card_mem:
         raise AssertionError(f"peak memory {peak} bytes over the card's {card_mem}")
@@ -948,6 +1006,7 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
         "padded_slot_waste": stats["padded_slot_waste"], "launches": launches,
         "isolated_bitwise_equal": iso_rows,
         "peak_mem_gib": peak / 2**30, "card_mem_gib": card_mem / 2**30,
+        "init_peak_mem_gib": init_peak / 2**30, "serving_peak_mem_gib": serving_peak / 2**30,
         **extra, "profile": profile,
     }
     emit(phase, **out)
@@ -1270,6 +1329,173 @@ def phase_parity_train(cfg, card: dict, batch: int = 2, seq: int = 32) -> dict:
     return out
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _profile_allreduce(cfg, opt, ts, params: dict, opt_state: dict, batch: int, seq: int,
+                       step: int, mesh) -> dict:
+    """One more data-parallel step (the stream's ``step``) under
+    torch.profiler: the NCCL kernels' device time and count, and the host
+    time of the all-reduce calls, beside the step's device busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.data import shard_batch, synthetic_batch
+    from repro_torch.train.train_step import make_train_step
+
+    fn = make_train_step(cfg, opt, ts, group=mesh.get_group("data"))
+    b = shard_batch(cfg, synthetic_batch(cfg, batch, seq, step, device="cuda"), mesh)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = fn(params, opt_state, b)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    dev = _device_time(prof, cfg)
+    nccl = [r for r in dev["rows"] if "nccl" in r[0].lower()]
+    host = [e for e in prof.key_averages() if "allreduce" in e.key.lower().replace("_", "")]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": dev["busy_s"] * 1e3,
+            "nccl_kernels": [{"name": k[:90], "calls": c, "ms": us * 1e-3} for k, c, us in nccl],
+            "nccl_device_ms": sum(us for _, _, us in nccl) * 1e-3,
+            "nccl_calls": sum(c for _, c, _ in nccl),
+            "allreduce_host_ops": [{"op": e.key, "calls": e.count,
+                                    "cpu_ms": e.cpu_time_total * 1e-3} for e in host]}
+
+
+def _ab_steps(cfg, opt, ts, params: dict, opt_state: dict, batch: int, seq: int, step: int,
+              mesh, rounds: int = 2) -> dict:
+    """Host ms of train steps without and with the data group on the same
+    params, in turns (plain, group, group, plain) ``rounds`` times, each
+    step ending in its metrics' copy to the host: the cost of the
+    reduction on the step, apart from the two phases' other conditions."""
+    from repro_torch.train.data import shard_batch, synthetic_batch
+    from repro_torch.train.train_step import make_train_step
+
+    fns = {"plain": make_train_step(cfg, opt, ts),
+           "group": make_train_step(cfg, opt, ts, group=mesh.get_group("data"))}
+    out = {"plain": [], "group": []}
+    for i in range(rounds):
+        for kind in ("plain", "group", "group", "plain"):
+            b = synthetic_batch(cfg, batch, seq, step + i, device="cuda")
+            if kind == "group":
+                b = shard_batch(cfg, b, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, m = fns[kind](params, opt_state, b)
+            float(m["loss"])
+            out[kind].append((time.perf_counter() - t0) * 1e3)
+    out["group_minus_plain_ms_median"] = float(np.median(out["group"]) - np.median(out["plain"]))
+    return out
+
+
+def phase_dist(card: dict, train: dict, serve: dict, steps: int = 10, batch: int = 4,
+               seq: int = 128) -> dict:
+    """The distribution slice on one card: (a) the torch bridge's self-test
+    on a one-rank NCCL group, started through ``distributed_init``'s
+    environment path on 127.0.0.1; (b) full-width gemma-2b trained through
+    ``repro_torch.launch.train`` with ``--data-model 1 1`` on that group
+    (the CLI's flags, configs, mesh and loop; no checkpoint, which at fp32
+    is 30 GB of p, m and v), its losses bitwise equal to the ``train``
+    phase's; (c) the analytic memory model beside the measured peaks."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.memmodel import analytic_memory, param_bytes_per_device
+    from repro_torch.launch import distributed_init as di
+    from repro_torch.launch import train as cli
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.train_step import init_opt_state
+
+    env = {"REPRO_COORD": f"127.0.0.1:{_free_port()}", "REPRO_NUM_HOSTS": "1",
+           "REPRO_HOST_ID": "0", "REPRO_LOCAL_RANK": "0"}
+    spec = di.world_from_env(env)
+    backend = di.init_process_group(spec, "cuda")
+    try:
+        # (a) the self-test, its rank-0 line read back
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            di.run_target("repro_torch.launch._torch_selftest:main", [])
+        selftest = buf.getvalue().strip()
+        if "TORCH_BRIDGE_SELFTEST_OK world=1 backend=nccl" not in selftest:
+            raise AssertionError(f"self-test: {selftest!r}")
+        selftest_s = time.perf_counter() - t0
+
+        # (b) training on the group, as the CLI runs it
+        argv = ["--arch", "gemma-2b", "--device", "cuda", "--steps", str(steps),
+                "--batch", str(batch), "--seq", str(seq), "--data-model", "1", "1"]
+        args = cli.parse_args(argv)
+        cfg, opt, ts = cli.configs(args)
+        mesh = cli.data_mesh(args.data_model, torch.device("cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        opt_state = init_opt_state(cfg, params, ts)
+        cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        params, opt_state, hist = cli.train_loop(
+            cfg, opt, ts, params, opt_state, batch=args.batch, seq=args.seq, steps=args.steps,
+            device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+        if _launch_counts() != before:
+            raise AssertionError("data-parallel training launched kernels")
+        losses = [h["loss"] for h in hist]
+        if losses != train["loss"]:
+            raise AssertionError(f"dist losses {losses} differ from train's {train['loss']}")
+        grad_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+        n_leaves = len(leaves(params))
+        profile = _profile_allreduce(cfg, opt, ts, params, opt_state, batch, seq, steps, mesh)
+        ab = _ab_steps(cfg, opt, ts, params, opt_state, batch, seq, steps + 1, mesh)
+        step_ms = [h["seconds"] * 1e3 for h in hist]
+        p50 = float(np.median(step_ms[1:]))
+        del params, opt_state
+        torch.cuda.empty_cache()
+
+        # (c) the analytic memory model beside the measured peaks
+        one = {"data": 1, "model": 1}
+        served = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+        served_bytes = sum(p.numel() * p.element_size() for p in leaves(served))
+        del served
+        torch.cuda.empty_cache()
+        model_bytes = param_bytes_per_device(cfg, one)
+        if model_bytes != served_bytes:
+            raise AssertionError(f"param_bytes_per_device {model_bytes} != {served_bytes}")
+        mem_train = analytic_memory(cfg, one, "train", batch, seq)
+        mem_decode = analytic_memory(cfg, one, "decode", 4, 512)
+        gib = 2**30
+        memory = {
+            "param_bytes_per_device": model_bytes, "served_bf16_param_bytes": served_bytes,
+            "train": {"analytic": mem_train, "analytic_total_gib": mem_train["total"] / gib,
+                      "measured_train_phase_gib": train["max_memory_allocated_gib"],
+                      "measured_dist_phase_gib": peak / gib,
+                      "measured_over_analytic": peak / mem_train["total"]},
+            "decode": {"analytic": mem_decode, "analytic_total_gib": mem_decode["total"] / gib,
+                       "measured_serve_phase_gib": serve["peak_mem_gib"],
+                       "measured_serving_gib": serve["serving_peak_mem_gib"],
+                       "serving_over_analytic": serve["serving_peak_mem_gib"] * gib
+                       / mem_decode["total"]},
+        }
+    finally:
+        dist.destroy_process_group()
+    out = {"card": card["nvidia_smi"], "backend": backend, "world": spec.world_size,
+           "init_method": spec.init_method, "selftest": selftest, "selftest_s": selftest_s,
+           "entry_point": "repro_torch.launch.train (parse_args, configs, data_mesh, "
+                          "train_loop)", "argv": argv, "model": cfg.name,
+           "dtype": "float32", "loss": losses, "losses_bitwise_equal_train": True,
+           "step_ms": step_ms, "step_ms_p50_2_to_10": p50,
+           "train_step_ms_p50_2_to_10": train["step_ms_p50_2_to_10"],
+           "max_memory_allocated_gib": peak / gib,
+           # one all-reduce a gradient leaf (fp32) and one of the loss
+           "allreduce_bytes_per_step": grad_bytes + 4, "allreduce_calls_per_step": n_leaves + 1,
+           "ab_step_ms": ab, "profile": profile, "memory": memory}
+    emit("dist", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1301,9 +1527,13 @@ def main() -> int:
     phase_parity(dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1), "parity_vl",
                  cut="n_layers 80 -> 1: 72.7 B parameters (291 GB in fp32) do not fit one "
                      "card; the full width is kept")
-    phase_train(card)
+    train = phase_train(card)
     phase_train_resume(card)
     phase_parity_train(dataclasses.replace(get_config("gemma-2b"), n_layers=2), card)
+    phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2, attn_logit_softcap=50.0),
+                 "parity_softcap", cut="n_layers 18 -> 2 as in parity; attn_logit_softcap "
+                                       "None -> 50.0, Gemma-2's published cap")
+    phase_dist(card, train, paths["serve"])
 
     kernels = []
     for name, meta in KERNELS.items():

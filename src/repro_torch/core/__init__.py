@@ -1,10 +1,13 @@
 """The part of pPython's core the port needs: the map construct and the
-PITFALLS index algebra, for the checkpoint's segment reads.
+PITFALLS index algebra, for the checkpoint's segment reads and the torch
+bridge.
 
 ``dmap``, ``pitfalls`` and ``redist`` are the port's own copies of
-``repro.core``'s modules.  ``Dmat`` and the parallel support functions
-(``repro.core.dmat``, ``repro.core.ops``) are not ported: they need the
-communication layer, which waits for distribution.
+``repro.core``'s modules; ``torch_bridge`` lowers a ``Dmap`` onto a
+``torch.distributed`` mesh (the port of ``repro.core.jax_bridge``).
+``Dmat`` and the parallel support functions (``repro.core.dmat``,
+``repro.core.ops``) are not ported: they need the communication layer
+(``repro.comm``), which waits for the ``Dmat`` checkpoint paths.
 """
 
 from .dmap import Dmap

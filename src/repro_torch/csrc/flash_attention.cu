@@ -4,7 +4,10 @@
 // Pallas TPU kernel behind src/repro/kernels/ops.py::attention.
 //
 // Computes out = softmax(q k^T / sqrt(D)) v over the natural layouts
-// q (B, S, H, D) and k, v (B, S, KH, D), with the running max, the
+// q (B, S, H, D) and k, v (B, S, KH, D), optionally with the logits
+// capped (Gemma-2's attn_logit_softcap c: c tanh(logit / c) after the
+// scale and before the mask, as the reference layers apply it), with the
+// running max, the
 // denominator and the output accumulator in fp32 (as the TPU kernel keeps
 // them), an optional causal mask, and out (B, S, H, D) in q's dtype.
 // Query head h reads kv head h / (H / KH) straight from k and v by
@@ -54,6 +57,11 @@
 //   a thread 13 warps fit an SM where a second accumulator would not.
 // - 2^x on the special-function unit (ex2.approx, 2 ulp; -inf gives 0)
 //   with scale * log2(e) folded into one FMA per logit.
+// - The softcap is a template flag (kCap), so the uncapped instances are
+//   the code they were without it.  A capped instance first forms each
+//   scaled logit, caps it in registers with the accurate tanhf (no
+//   fast-math approximation), and keeps the running max and the exp2's
+//   FMA in those capped units (its scale_log2 is log2(e) alone).
 // - The output goes back through shared memory (the warpgroup's own Q
 //   rows, in the same swizzled layout) and leaves as TMA stores, which
 //   drop the rows past S.
@@ -376,12 +384,13 @@ __host__ __device__ constexpr int block_threads(int d, int ncw) {
 }
 
 // grid: x = batch row * (H / pack) + head group, y = q-tile, heaviest first.
-template <int D, int NCW>
+// kCap: logits capped at cap (cap_scale = the softmax scale over cap).
+template <int D, int NCW, bool kCap>
 __global__ void __launch_bounds__(block_threads(D, NCW), 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
                   int S, int G, int pack_log2, int head_groups, float scale_log2,
-                  int causal) {
+                  int causal, float cap, float cap_scale) {
   using T = Tile<D>;
   constexpr int QB = q_bytes<D>(NCW), KVB = kv_bytes<D>();
   constexpr int QREG = NCW * 64 * T::ROW;  // a Q chunk: all the block's rows
@@ -456,7 +465,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m[2] = {-INFINITY, -INFINITY};  // running max of rows a, b (raw logits)
+    float m[2] = {-INFINITY, -INFINITY};  // running max of rows a, b (raw or capped logits)
     float l[2] = {0.f, 0.f};              // this thread's share of the denominators
 
     // S = Q K^T of stage s into sc (64 rows x 64 keys), issued, not waited
@@ -503,6 +512,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         mbar_arrive(k_empty(s));
       }
 
+      if constexpr (kCap) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = cap * tanhf(sc[i] * cap_scale);
+      }
       // mask (ragged tail, causal) and the online softmax, in fp32
       if (k0 + kBK > S || (causal && k0 + kBK - 1 > p0)) {
 #pragma unroll
@@ -652,9 +665,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int bo
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int NCW>
+template <int D, int NCW, bool kCap>
 cudaError_t launch_bf16_tiled(const void* q, const void* k, const void* v, void* o, int B,
-                              int S, int H, int KH, float scale, int causal,
+                              int S, int H, int KH, float scale, int causal, float cap,
                               cudaStream_t st) {
   constexpr int bytes = smem_bytes<D>(NCW);
   static_assert(bytes <= kMaxSmem, "Q and the K/V ring overflow shared memory");
@@ -668,7 +681,7 @@ cudaError_t launch_bf16_tiled(const void* q, const void* k, const void* v, void*
   static bool granted = false;
   if (!granted) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<D, NCW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        flash_bf16_kernel<D, NCW, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (e != cudaSuccess) return e;
     granted = true;
   }
@@ -679,19 +692,33 @@ cudaError_t launch_bf16_tiled(const void* q, const void* k, const void* v, void*
     return cudaErrorInvalidValue;
   }
   const dim3 grid((unsigned)groups, (unsigned)tiles);
-  flash_bf16_kernel<D, NCW><<<grid, block_threads(D, NCW), bytes, st>>>(
-      tq, tk, tv, to, S, G, pack_log2, H / pack, scale * kLog2e, causal);
+  // capped: the logits are scaled before the cap, so exp2 takes log2(e) alone
+  flash_bf16_kernel<D, NCW, kCap><<<grid, block_threads(D, NCW), bytes, st>>>(
+      tq, tk, tv, to, S, G, pack_log2, H / pack, kCap ? kLog2e : scale * kLog2e, causal,
+      cap, kCap ? scale / cap : 0.f);
   return cudaGetLastError();
+}
+
+template <int D, int NCW>
+cudaError_t launch_bf16_capped(const void* q, const void* k, const void* v, void* o, int B,
+                               int S, int H, int KH, float scale, int causal, float cap,
+                               cudaStream_t st) {
+  if (cap > 0.f)
+    return launch_bf16_tiled<D, NCW, true>(q, k, v, o, B, S, H, KH, scale, causal, cap, st);
+  return launch_bf16_tiled<D, NCW, false>(q, k, v, o, B, S, H, KH, scale, causal, cap, st);
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int KH, float scale, int causal, int q_rows, cudaStream_t st) {
-  if (q_rows == 64) return launch_bf16_tiled<D, 1>(q, k, v, o, B, S, H, KH, scale, causal, st);
-  if (q_rows == 128) return launch_bf16_tiled<D, 2>(q, k, v, o, B, S, H, KH, scale, causal, st);
+                        int H, int KH, float scale, int causal, float cap, int q_rows,
+                        cudaStream_t st) {
+  if (q_rows == 64)
+    return launch_bf16_capped<D, 1>(q, k, v, o, B, S, H, KH, scale, causal, cap, st);
+  if (q_rows == 128)
+    return launch_bf16_capped<D, 2>(q, k, v, o, B, S, H, KH, scale, causal, cap, st);
   if constexpr (D <= 80) {  // three warpgroups fit the register file only here
     if (q_rows == 192)
-      return launch_bf16_tiled<D, 3>(q, k, v, o, B, S, H, KH, scale, causal, st);
+      return launch_bf16_capped<D, 3>(q, k, v, o, B, S, H, KH, scale, causal, cap, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -699,10 +726,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 constexpr int kRowsPerBlockF32 = 4;  // one warp per query row
 constexpr int kPerLane = kMaxD / 32;
 
+template <bool kCap>
 __global__ void __launch_bounds__(32 * kRowsPerBlockF32)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KH, int d, float scale, int causal) {
+                 int H, int KH, int d, float scale, int causal, float cap) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int qi = blockIdx.x * kRowsPerBlockF32 + warp;
   if (qi >= S) return;  // no block-wide barrier below
@@ -726,7 +754,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int e = lane + 32 * j;
       if (e < d) dot = fmaf(qv[j], k[row + e], dot);
     }
-    const float s = warp_sum(dot) * scale;
+    float s = warp_sum(dot) * scale;
+    if constexpr (kCap) s = cap * tanhf(s / cap);
     const float m_new = fmaxf(m, s);
     const float alpha = expf(m - m_new), p = expf(s - m_new);
     l = l * alpha + p;
@@ -752,12 +781,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // (0 = float32, 1 = bfloat16).  H % KH == 0; D <= 256 in fp32, D in
 // {64, 80, 128, 256} in bf16 with 16-byte aligned pointers.  bf16 only:
 // q_rows, the query rows a block (64 or 128; 192 at D 64 and 80).
+// softcap: 0 for none, else the cap c > 0.
 // Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int H, int KH, int d, int causal,
-                                      int dtype, int q_rows, void* stream) {
+                                      int dtype, int q_rows, float softcap, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || d <= 0 || d > kMaxD ||
-      B > 65535 || H > 65535) {
+      B > 65535 || H > 65535 || !(softcap >= 0.f)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
@@ -765,20 +795,30 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (dtype == 1) {
     switch (d) {
       case 64:
-        return (int)launch_bf16<64>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
+        return (int)launch_bf16<64>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
+                                      st);
       case 80:
-        return (int)launch_bf16<80>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
+        return (int)launch_bf16<80>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
+                                      st);
       case 128:
-        return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
+        return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
+                                      st);
       case 256:
-        return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, q_rows, st);
+        return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
+                                      st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + kRowsPerBlockF32 - 1) / kRowsPerBlockF32, H, B);
-  flash_f32_kernel<<<grid, 32 * kRowsPerBlockF32, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH, d,
-      scale, causal);
+  if (softcap > 0.f) {
+    flash_f32_kernel<true><<<grid, 32 * kRowsPerBlockF32, 0, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH, d,
+        scale, causal, softcap);
+  } else {
+    flash_f32_kernel<false><<<grid, 32 * kRowsPerBlockF32, 0, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH, d,
+        scale, causal, 0.f);
+  }
   return (int)cudaGetLastError();
 }

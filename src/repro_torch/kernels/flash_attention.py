@@ -5,7 +5,10 @@ PyTorch version.
 (B, S, KH, D).  On CUDA tensors it launches ``csrc/flash_attention.cu``
 (the port of ``repro.kernels.flash_attention``'s Pallas kernel) or
 raises; on CPU tensors it runs ``attention_plain``.  Both read kv head
-``h // (H // KH)`` for query head ``h``; neither repeats heads.  The
+``h // (H // KH)`` for query head ``h``; neither repeats heads.  Both
+take an optional ``softcap`` c (Gemma-2's ``attn_logit_softcap``): the
+scaled logits become c·tanh(logit / c) before the causal mask, as the
+reference layers apply it; the kernel has it as a compile-time flag.  The
 kernel has no backward: with grad enabled, an input off the CPU that
 requires grad raises.
 
@@ -41,15 +44,18 @@ MAX_PACK = 64  # query heads packed into one block's rows
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, softcap: float | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v in fp32, returned in q's dtype — the
     kernel's semantics (``repro.kernels.ref.attention_ref`` with grouped
-    kv heads)."""
+    kv heads); with ``softcap`` c the scaled logits are c·tanh(logit / c)
+    before the mask."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     g = h // kh
     qg = q.float().reshape(b, s, kh, g, d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (1.0 / math.sqrt(d))
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
@@ -99,7 +105,7 @@ def _launcher():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -130,15 +136,18 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values."""
+                    causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+    """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values,
+    the logits capped at ``softcap`` if it is given (> 0)."""
+    if softcap is not None and not softcap >= 0:
+        raise ValueError(f"flash_attention: softcap {softcap} must not be negative")
     devices = {t.device for t in (q, k, v)}
     on_cpu = devices == {torch.device("cpu")}
     if not on_cpu and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the CUDA kernel has no backward; call it "
                            "under torch.no_grad() or on inputs that do not require grad")
     if on_cpu:
-        return attention_plain(q, k, v, causal)
+        return attention_plain(q, k, v, causal, softcap)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k, v on {sorted(map(str, devices))}")
     _check(q, k, v)
@@ -151,7 +160,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, kh, d, int(causal), _DTYPES[q.dtype], q_rows,
+        b, s, h, kh, d, int(causal), _DTYPES[q.dtype], q_rows, float(softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

@@ -56,11 +56,12 @@ def plain_route() -> bool:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """GQA flash attention: q (B, S, H, D), k/v (B, S, KH, D) -> (B, S, H, D)."""
+              causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+    """GQA flash attention: q (B, S, H, D), k/v (B, S, KH, D) -> (B, S, H, D),
+    the logits capped at ``softcap`` if it is given."""
     if _PLAIN.get():
-        return attention_plain(q, k, v, causal)
-    return flash_attention(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal, softcap)
+    return flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

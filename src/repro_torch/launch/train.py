@@ -1,10 +1,11 @@
-"""Training CLI of the port: any ported arch on one card (or the CPU).
+"""Training CLI of the port: any ported arch on one card, the CPU, or a
+data-parallel world of them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \
-        --steps 100 --batch 8 --seq 256 [--reduced] [--resume] [--device cpu]
+        --steps 100 --batch 8 --seq 256 [--reduced] [--resume] [--device cpu] \
+        [--data-model D M]
 
-The port of ``repro.launch.train``, with its flags but ``--data-model``
-(a mesh shape: distribution is not ported) and with ``--device``
+The port of ``repro.launch.train``, with its flags and ``--device``
 (default ``cuda``; no fallback).  Parameters are initialised in fp32
 from seed 0.  The loop (``train_loop``) checkpoints every
 ``--ckpt-every`` steps (async) and ``main`` once more at the end;
@@ -13,6 +14,18 @@ is labelled with the number of steps it holds, so a resumed run takes
 up the stream at the next batch and repeats no step (the reference
 labels its periodic checkpoints one step lower, so its resume applies
 that step's batch a second time).
+
+Over a world of ranks (one process a card, started by
+``repro_torch.launch.distributed_init`` or torchrun), ``--data-model D
+M`` lays a (data, model) mesh over it; without the flag a world of W > 1
+ranks takes (W, 1), as the reference takes (device count, 1).  Each rank
+trains on its rows of the global batch (``dist.sharding.
+batch_shardings``), the gradients are averaged over the data axis before
+the optimizer and the loss is the global mean (``train.train_step``);
+params and moments stay replicated, and the CLI checks at the start and
+the end that the replicas agree bit for bit.  Rank 0 writes the
+checkpoints while the others wait at a barrier; ``--resume`` restores on
+every rank.  M > 1 (a sharded model axis) is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,35 +36,84 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..configs import get_config, list_archs
 from ..models import init_params
 from ..obs import trace as _trace
 from ..train.checkpoint import CheckpointManager
-from ..train.data import batch_iterator
-from ..train.optimizer import AdamWConfig
+from ..train.data import batch_iterator, shard_batch
+from ..train.optimizer import AdamWConfig, leaves
 from ..train.train_step import TrainStepConfig, init_opt_state, make_train_step
+
+MODEL_AXIS_TODO = ("training with a sharded model axis (--data-model D M, M > 1) is not "
+                   "ported yet: ROADMAP.md Queue 1, item 7")
+
+
+def data_mesh(data_model, device: torch.device):
+    """The (data, model) mesh training runs on, or None for one process
+    without a world: ``data_model`` as given, else (W, 1) in a world of
+    W > 1 ranks."""
+    from .mesh import make_local_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data_model is None:
+        if world == 1:
+            return None
+        data_model = (world, 1)
+    data, model = data_model
+    if model > 1:
+        raise NotImplementedError(MODEL_AXIS_TODO)
+    if not dist.is_initialized():
+        raise RuntimeError("--data-model needs a running world: start the ranks with "
+                           "python -m repro_torch.launch.distributed_init or torchrun")
+    if data * model != world:
+        raise ValueError(f"--data-model {data} {model} does not cover the {world} ranks")
+    return make_local_mesh(data, model, device_type=device.type)
+
+
+def check_replicas(tree: dict, group) -> None:
+    """Raise unless every rank of ``group`` holds ``tree`` bit for bit: a
+    per-leaf sum of the bits as integers, its max and min over the
+    group."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    fp = torch.stack([t.contiguous().view(ints[t.element_size()]).sum(dtype=torch.int64)
+                      for t in leaves(tree)])
+    lo = fp.clone()
+    dist.all_reduce(fp, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    if not torch.equal(fp, lo):
+        raise RuntimeError("the data-parallel replicas have drifted apart")
+
+
+def _rank0(mesh) -> bool:
+    return mesh is None or dist.get_rank() == 0
 
 
 def train_loop(cfg, opt: AdamWConfig, ts: TrainStepConfig, params: dict, opt_state: dict,
                *, batch: int, seq: int, steps: int, start: int = 0, device="cuda",
-               mgr: CheckpointManager | None = None, ckpt_every: int = 20):
+               mgr: CheckpointManager | None = None, ckpt_every: int = 20, mesh=None):
     """Run steps ``start`` .. ``steps - 1`` of the synthetic stream.
 
     Each step is a ``train.step`` span carrying its loss, grad norm and
     LR, read back to the host once a step (one small copy, which waits
     for the step).  With ``mgr``, a checkpoint of the params and the
-    optimizer state is saved (async) after every ``ckpt_every`` steps
-    before the last.  Returns (params, opt_state, history): one dict a
-    step with ``step``, ``loss``, ``grad_norm``, ``lr`` and ``seconds``
-    (host wall time of the step, from the call to the metrics on the
-    host)."""
-    step_fn = make_train_step(cfg, opt, ts)
+    optimizer state is saved (async, by rank 0 on a mesh) after every
+    ``ckpt_every`` steps before the last.  With ``mesh`` (from
+    ``data_mesh``) each step takes this rank's rows of the global batch
+    and reduces over the data axis.  Returns (params, opt_state,
+    history): one dict a step with ``step``, ``loss`` (on a mesh the
+    global mean), ``grad_norm``, ``lr`` and ``seconds`` (host wall time
+    of the step, from the call to the metrics on the host)."""
+    group = mesh.get_group("data") if mesh is not None else None
+    step_fn = make_train_step(cfg, opt, ts, group=group)
     history = []
     for step, b in batch_iterator(cfg, batch, seq, start_step=start, device=device):
         if step >= steps:
             break
+        if mesh is not None:
+            b = shard_batch(cfg, b, mesh)
         t0 = time.perf_counter()
         with _trace.span("train.step", step=step, tokens=batch * seq) as sp:
             params, opt_state, metrics = step_fn(params, opt_state, b)
@@ -60,17 +122,21 @@ def train_loop(cfg, opt: AdamWConfig, ts: TrainStepConfig, params: dict, opt_sta
             sp.set(loss=loss, grad_norm=gnorm, lr=lr)
         history.append({"step": step, "loss": loss, "grad_norm": gnorm, "lr": lr,
                         "seconds": time.perf_counter() - t0})
-        if step % 5 == 0 or step == steps - 1:
+        if _rank0(mesh) and (step % 5 == 0 or step == steps - 1):
             print(f"[train] step {step:4d} loss {loss:8.4f} lr {lr:.2e} "
                   f"gnorm {gnorm:.2f}", flush=True)
         done = step + 1
         if mgr is not None and done % ckpt_every == 0 and done < steps:
-            mgr.save(done, {"params": params, "opt_state": opt_state}, blocking=False)
+            if _rank0(mesh):
+                mgr.save(done, {"params": params, "opt_state": opt_state}, blocking=False)
+            if mesh is not None:
+                dist.barrier()
     return params, opt_state, history
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=list_archs(), required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-size config (CPU-friendly)")
@@ -84,20 +150,34 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--data-model", type=int, nargs=2, default=None,
+                    metavar=("DATA", "MODEL"),
+                    help="mesh shape over the ranks of the running world")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def configs(args: argparse.Namespace):
+    """(model config, AdamWConfig, TrainStepConfig) the flags ask for."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    dev = resolve_device(args.device)
-    print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, device {dev}")
-
     opt = AdamWConfig(lr=args.lr, warmup_steps=min(10, args.steps),
                       total_steps=args.steps,
                       schedule="wsd" if cfg.wsd_schedule else "cosine")
     ts = TrainStepConfig(microbatches=args.microbatches, remat=True,
                          grad_compression=args.grad_compression)
+    return cfg, opt, ts
+
+
+def run(args: argparse.Namespace):
+    """The CLI's run: (params, opt_state, history) of this rank."""
+    cfg, opt, ts = configs(args)
+    dev = resolve_device(args.device)
+    mesh = data_mesh(args.data_model, dev)
+    if _rank0(mesh):
+        where = f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}" if mesh else "one process"
+        print(f"[train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, device {dev}, {where}")
 
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(), f"repro_train_{cfg.name}")
     mgr = CheckpointManager(ckpt_dir, keep=2)
@@ -105,20 +185,35 @@ def main(argv=None) -> int:
     if args.resume and mgr.latest_step() is not None:
         start, trees, _ = mgr.restore(device=dev)
         params, opt_state = trees["params"], trees["opt_state"]
-        print(f"[train] resumed from step {start}")
+        if _rank0(mesh):
+            print(f"[train] resumed from step {start}")
     else:
         params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
         opt_state = init_opt_state(cfg, params, ts)
+    if mesh is not None:
+        check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
 
     t0 = time.perf_counter()
-    params, opt_state, _ = train_loop(
+    params, opt_state, history = train_loop(
         cfg, opt, ts, params, opt_state, batch=args.batch, seq=args.seq,
-        steps=args.steps, start=start, device=dev, mgr=mgr, ckpt_every=args.ckpt_every)
-    mgr.wait()
-    mgr.save(args.steps, {"params": params, "opt_state": opt_state})
+        steps=args.steps, start=start, device=dev, mgr=mgr, ckpt_every=args.ckpt_every,
+        mesh=mesh)
+    if mesh is not None:
+        check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+    if _rank0(mesh):
+        mgr.wait()
+        mgr.save(args.steps, {"params": params, "opt_state": opt_state})
+    if mesh is not None:
+        dist.barrier()
     dt = time.perf_counter() - t0
     toks = (args.steps - start) * args.batch * args.seq
-    print(f"[train] done: {toks/dt:.0f} tok/s; checkpoints in {ckpt_dir}")
+    if _rank0(mesh):
+        print(f"[train] done: {toks/dt:.0f} tok/s; checkpoints in {ckpt_dir}")
+    return params, opt_state, history
+
+
+def main(argv=None) -> int:
+    run(parse_args(argv))
     return 0
 
 

@@ -8,7 +8,13 @@ on a CUDA tensor, their plain versions on a CPU tensor.  The kernel keeps
 the prefill logits and softmax in fp32, as the TPU kernel does; the JAX
 layer rounds them to x's dtype — at fp32 the two agree to rounding.
 Decode attention has no kernel in the reference and stays torch ops.
-The JAX package's sharding hints are dropped: one card has no mesh.
+``attn_logit_softcap`` is applied in every attention path, as in the
+reference (the kernel has it too).  Past ``CHUNKED_ATTN_THRESHOLD``
+tokens the plain route (the CPU, or ``plain_kernels()`` in training)
+goes block by block (``attention_chunked``) instead of forming the
+O(S²) logits; on the card the flash kernel serves every S.
+The JAX package's sharding hints are dropped: the port's model body
+runs on each rank's local tensors (``repro_torch.dist.hints``).
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ops import attention as _flash
-from ..kernels.ops import rmsnorm_op
+from ..kernels.ops import plain_route, rmsnorm_op
 from .config import ModelConfig
 
 
@@ -106,6 +112,9 @@ def _rotate(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch
 # ---------------------------------------------------------------------------
 
 
+CHUNKED_ATTN_THRESHOLD = 8192  # longer sequences take the block-by-block plain route
+
+
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     """Projected + rotated q (B,S,H,Dh) and k, v (B,S,KH,Dh), not repeated."""
     b, s, _ = x.shape
@@ -120,11 +129,54 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
     return _rotate(cfg, q, positions), _rotate(cfg, k, positions), v.contiguous()
 
 
-def _no_softcap(cfg: ModelConfig) -> None:
-    if cfg.attn_logit_softcap:
-        raise NotImplementedError(
-            "attn_logit_softcap is not in the flash-attention kernel"
-        )
+def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  softcap: float | None, blk: int) -> torch.Tensor:
+    """Causal attention of q (B, S, H, Dh) over k, v (B, S, KH, Dh) one
+    (q-block, kv-block) pair of the lower triangle at a time, with an fp32
+    online softmax, in the reference's ``attention_chunked`` order: q
+    scaled by a NumPy scalar (which JAX promotes to fp32), the logits
+    capped, the diagonal block masked.  Kv head h // (H / KH) is read in
+    place of repeated heads; a last block shorter than ``blk`` is taken as
+    it is."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    blk = min(blk, s)
+    scale = 1.0 / np.sqrt(dh)
+    outs = []
+    for q0 in range(0, s, blk):
+        q1 = min(q0 + blk, s)
+        n = q1 - q0
+        qb = (q[:, q0:q1].float() * scale).reshape(b, n, kh, g, dh)
+        m = torch.full((b, kh, g, n), float("-inf"), dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kh, g, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kh, g, n, dh), dtype=torch.float32, device=q.device)
+        for k0 in range(0, q1, blk):
+            k1 = min(k0 + blk, s)
+            logit = torch.einsum("bskgd,btkd->bkgst", qb, k[:, k0:k1].float())
+            if softcap:
+                logit = softcap * torch.tanh(logit / softcap)
+            if k0 == q0:  # diagonal block: triangular mask
+                above = torch.ones(n, k1 - k0, dtype=torch.bool, device=q.device).triu(1)
+                logit = logit.masked_fill(above, float("-inf"))
+            m_new = torch.maximum(m, logit.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            pexp = torch.exp(logit - m_new[..., None])
+            l = l * alpha + pexp.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", pexp, v[:, k0:k1].float())
+            m = m_new
+        outs.append((acc / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, n, h, dh))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Causal attention of the projected heads, capped at the config's
+    softcap: the flash kernel (or its plain version), or past
+    ``CHUNKED_ATTN_THRESHOLD`` on the plain route the block-by-block one."""
+    if q.shape[1] > CHUNKED_ATTN_THRESHOLD and (plain_route() or q.device.type == "cpu"):
+        return _chunked_core(q, k, v, cfg.attn_logit_softcap, 2048)
+    return _flash(q, k, v, causal=True, softcap=cfg.attn_logit_softcap)
 
 
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -138,11 +190,21 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """Causal attention that also returns the rotated *pre-repeat* K/V
     (KH heads) — the rows ``attention_decode`` would have appended to its
     cache one token at a time.  Returns (out, k, v)."""
-    _no_softcap(cfg)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    out = _flash(q, k, v, causal=True).reshape(b, s, cfg.q_dim)
+    out = _attend(cfg, q, k, v).reshape(b, s, cfg.q_dim)
     return out @ p["wo"], k, v
+
+
+def attention_chunked(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      blk: int = 2048) -> torch.Tensor:
+    """Causal attention block by block (the reference's ``attention_chunked``,
+    which its ``attention`` takes past ``CHUNKED_ATTN_THRESHOLD``): peak
+    memory O(S·blk) instead of O(S²)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = _chunked_core(q, k, v, cfg.attn_logit_softcap, blk).reshape(b, s, cfg.q_dim)
+    return out @ p["wo"]
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -129,6 +129,17 @@ def keeps_fp32(name: str) -> bool:
         ("mu_", "ln", "gate_norm", "final_norm"))
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    storage): ``dtype`` but the leaves ``keeps_fp32`` names."""
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else torch.empty(
+                    v, dtype=torch.float32 if keeps_fp32(k) else dtype, device="meta")
+                for k, v in tree.items()}
+
+    return walk(param_shapes(cfg))
+
+
 # leaves above this many elements are drawn one slice of the lead axis at
 # a time, so that the fp32 draw is never whole beside its cast: a stacked
 # expert leaf of deepseek-moe-16b (28, 64, 2048, 1408) would otherwise
@@ -364,8 +375,10 @@ def last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cuda") -> dict:
+    """The zeroed decode state of ``batch`` requests of up to ``max_seq``
+    tokens (``device="meta"``: its shapes and dtypes alone)."""
     _require_ported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     if cfg.family == "hybrid":
         g, e = _groups(cfg)
         kv = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -392,6 +405,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
         "k": torch.zeros(kv, dtype=dtype, device=dev),
         "v": torch.zeros(kv, dtype=dtype, device=dev),
     }
+
+
+def abstract_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                          dtype=torch.bfloat16) -> dict:
+    """The decode state's shapes and dtypes, without storage."""
+    return init_decode_state(cfg, batch, max_seq, dtype=dtype, device="meta")
 
 
 def decode_state_batch_dims(cfg: ModelConfig) -> dict:

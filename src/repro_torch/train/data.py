@@ -20,7 +20,7 @@ import torch
 from .._device import resolve_device
 from ..models.config import ModelConfig
 
-__all__ = ["synthetic_batch", "host_shard", "batch_iterator"]
+__all__ = ["synthetic_batch", "host_shard", "shard_batch", "batch_iterator"]
 
 
 def _zipf_logits(vocab: int, alpha: float = 1.1) -> np.ndarray:
@@ -71,6 +71,33 @@ def host_shard(batch: dict, host_id: int, n_hosts: int) -> dict:
         return x[host_id * per : (host_id + 1) * per]
 
     return {k: slc(v) for k, v in batch.items()}
+
+
+def shard_batch(cfg: ModelConfig, batch: dict, mesh) -> dict:
+    """This rank's part of the global ``batch`` on ``mesh`` (a
+    ``DeviceMesh``), as ``dist.sharding.batch_shardings(cfg, mesh,
+    "train", B)`` places it: its block of rows along the data axes (dim 1
+    of M-RoPE's (3, B, S) positions), or the whole batch where they do not
+    divide B."""
+    from ..dist.sharding import batch_shardings
+
+    rows = batch["labels"].shape[0]
+    specs = batch_shardings(cfg, mesh, "train", rows)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = {}
+    for key, x in batch.items():
+        out[key] = x
+        for dim, entry in enumerate(specs[key].spec):
+            if entry is None:
+                continue
+            names = entry if isinstance(entry, tuple) else (entry,)
+            coord, parts = 0, 1
+            for name in names:  # mixed radix, major axis first
+                coord = coord * sizes[name] + mesh.get_local_rank(name)
+                parts *= sizes[name]
+            per = x.shape[dim] // parts
+            out[key] = x.narrow(dim, coord * per, per)
+    return out
 
 
 def batch_iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

@@ -12,9 +12,22 @@ are updated in place (``optimizer.adamw_update``).
   the cross-data-axis reduction: bf16 (the accumulator itself is bf16),
   or int8 with error feedback (the residual is carried in opt_state).
 
-The reference's mesh options have no counterpart on one card and are
-dropped: ``grad_shardings`` and its ``_pin``, the microbatch
-``constrain``, and ``TrainStepConfig.sp``.
+Data parallelism (``group``, the data axis's process group): each rank
+computes the loss and gradients of its own rows of the global batch,
+and the gradients are averaged over the group by ``all_reduce`` before
+the optimizer — the reduction the reference leaves to GSPMD.  With bf16
+compression they are reduced in bf16 (the reference casts before its
+cross-data reduction); int8 with error feedback compresses the reduced
+fp32 gradients, the reference's order.  The reduction runs whatever the
+group's size, so a group of one still makes its collective calls.  The
+loss is reported as the global mean.  Params and moments stay replicated
+(``dist.sharding.param_shardings`` gives every leaf ``()`` at model = 1),
+and every rank applies the same update to them.
+
+The reference's other mesh options are not ported: ``grad_shardings``
+and its ``_pin`` (reduce-scattering gradients into model-axis shards,
+which waits for training with model > 1), the microbatch ``constrain``,
+and ``TrainStepConfig.sp``.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ..models import loss_fn
 from ..models.config import ModelConfig
@@ -50,6 +64,16 @@ def _compress_decompress(g, residual=None, *, how: str):
     return g, residual
 
 
+def _reduce_mean(tensors: list, group) -> None:
+    """Average ``tensors`` in place over the ranks of ``group`` (a sum by
+    ``all_reduce``, then the scale, which a group of one skips: x · 1 is x)."""
+    world = dist.get_world_size(group)
+    for t in tensors:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        if world > 1:
+            t.mul_(1.0 / world)
+
+
 def _unflatten_like(tree: dict, flat: list) -> dict:
     """``tree``'s keys over the tensors of ``flat`` (in ``leaves`` order)."""
     it = iter(flat)
@@ -62,10 +86,12 @@ def _unflatten_like(tree: dict, flat: list) -> dict:
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
-                    ts: TrainStepConfig = TrainStepConfig()):
+                    ts: TrainStepConfig = TrainStepConfig(), group=None):
     """Build the train step.  ``params`` is updated in place and returned;
     ``metrics`` holds 0-d tensors on the params' device (``loss``,
-    ``grad_norm``, ``lr``), read by the caller when it needs them."""
+    ``grad_norm``, ``lr``), read by the caller when it needs them.  With
+    ``group`` (a process group over the data axis) the batch is this
+    rank's rows and the gradients and loss are averaged over the group."""
 
     def grads_of(params, batch):
         # views of the parameters that require grad: the caller's tensors
@@ -106,6 +132,11 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                 g.mul_(inv)
         else:
             loss, grads = grads_of(params, batch)
+
+        if group is not None:
+            if ts.grad_compression == "bf16":  # cast before the reduction
+                grads = [g.to(torch.bfloat16) for g in grads]
+            _reduce_mean(grads + [loss], group)
 
         residuals = None
         if ts.grad_compression != "none":

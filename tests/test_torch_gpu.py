@@ -27,7 +27,9 @@ step, and launches rmsnorm and flash where the model says.  A train step
 thread) runs the kernels' plain versions: it is held to the same step on
 the CPU (loss and grad norm to 1e-4 relative; parameters as
 ``test_torch_train.py`` holds them to JAX: at most 1e-4 of the entries
-beyond 1e-5, none beyond 4 LR) and launches no kernel.
+beyond 1e-5, none beyond 4 LR) and launches no kernel.  The capped flash
+instances (``softcap``) are held to the capped plain version with the
+same tolerances.
 """
 
 import pytest
@@ -168,6 +170,34 @@ def test_flash_kernel_tiles_match_plain(cuda, b, s, h, kh, d, q_rows):
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.attention_plain(q, k, v, causal=causal)
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("cap", [50.0, 2.0], ids=["gemma2", "tight"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,d", [
+    (4, 128, 8, 1, 256),     # gemma-2b's prefill (128 rows a block)
+    (1, 4096, 8, 1, 256),    # gemma-2b's long prompt
+    (2, 100, 4, 2, 80),      # ragged, GQA, head_dim 80 (64 rows)
+    (2, 400, 32, 32, 80),    # 192 rows a block
+    (2, 300, 8, 2, 128),     # a ring that wraps
+    (1, 65, 4, 4, 64),
+])
+def test_flash_softcap_matches_plain(cuda, b, s, h, kh, d, dtype, cap):
+    """The capped kernel (logits c·tanh(logit / c) before the mask) against
+    the capped plain version, causal and not; a tight cap that bites on
+    unit-normal inputs and Gemma-2's 50."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=cuda).to(dtype)
+               for n in (h, kh, kh))
+    for causal in (True, False):
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=causal, softcap=cap)
+        assert fa.launches == before + 1
+        want = fa.attention_plain(q, k, v, causal=causal, softcap=cap)
+        torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    if cap < 10:  # the cap bites: the uncapped result would fail the check
+        free = fa.attention_plain(q, k, v, causal=False)
+        assert not torch.allclose(free.float(), got.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}

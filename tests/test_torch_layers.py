@@ -5,6 +5,8 @@ Tolerance 2e-5 for elementwise layers, 1e-4 where a projection sums over
 d_model or d_ff before the comparison.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -95,6 +97,94 @@ def test_attention_decode(arch, per_row):
     assert got[1] is ck and got[2] is cv  # the caches are written in place
     for g, w in zip(got, want):
         np.testing.assert_allclose(np32(g), np32(w), rtol=1e-4, atol=1e-4)
+
+
+SOFTCAPS = {"gemma2": 50.0, "tight": 0.5}  # Gemma-2's published cap; one that bites
+
+
+def _capped(arch, cap, **kw):
+    jcfg, tcfg = _cfgs(arch)
+    return (dataclasses.replace(jcfg, attn_logit_softcap=cap, **kw),
+            dataclasses.replace(tcfg, attn_logit_softcap=cap, **kw))
+
+
+@pytest.mark.parametrize("cap", sorted(SOFTCAPS))
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"])
+def test_attention_softcap_prefill_and_decode(arch, cap):
+    """``attn_logit_softcap`` in the prefill (the flash kernel's plain
+    version) and in decode, against the reference's layers at fp32."""
+    jcfg, tcfg = _capped(arch, SOFTCAPS[cap])
+    jp, tp = shared_params(jcfg, seed=6)
+    jp, tp = _layer0(jp["layers"])["attn"], _layer0(tp["layers"])["attn"]
+    rng = np.random.default_rng(6)
+    xj, xt = _x(rng, 2, 11, jcfg.d_model)
+    got = tl.attention_prefill(tcfg, tp, xt, tl.positions_for(tcfg, 2, 11))
+    want = jl.attention_prefill(jcfg, jp, xj, jl.positions_for(jcfg, 2, 11))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np32(g), np32(w), rtol=1e-4, atol=1e-4)
+    b, smax = 3, 12
+    xj, xt = _x(rng, b, 1, jcfg.d_model)
+    cache = rng.standard_normal((2, b, smax, jcfg.n_kv_heads, jcfg.head_dim)).astype(np.float32)
+    pos = np.array([0, 5, 11])
+    want = jl.attention_decode(jcfg, jp, xj, jnp.asarray(cache[0]), jnp.asarray(cache[1]),
+                               jnp.asarray(pos, jnp.int32))
+    got = tl.attention_decode(tcfg, tp, xt, torch.from_numpy(cache[0].copy()),
+                              torch.from_numpy(cache[1].copy()), torch.from_numpy(pos))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np32(g), np32(w), rtol=1e-4, atol=1e-4)
+
+
+def test_tight_softcap_changes_the_output():
+    """The tight cap bites: without it the prefill differs (so the parity
+    above would see a cap that was left out)."""
+    jcfg, tcfg = _capped("gemma-2b", SOFTCAPS["tight"])
+    _, tp = shared_params(jcfg, seed=6)
+    tp = _layer0(tp["layers"])["attn"]
+    xt = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 11, tcfg.d_model))
+                          .astype(np.float32))
+    pos = tl.positions_for(tcfg, 2, 11)
+    capped = tl.attention_prefill(tcfg, tp, xt, pos)[0]
+    free = tl.attention_prefill(dataclasses.replace(tcfg, attn_logit_softcap=None), tp, xt,
+                                pos)[0]
+    assert float((capped - free).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("cap", [None, 50.0, 0.5], ids=["none", "gemma2", "tight"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen2-7b"])
+def test_attention_chunked_matches_the_reference(arch, cap):
+    """The block-by-block route at S = 64 in blocks of 16 (ten q/kv block
+    pairs of the lower triangle) against the reference's
+    ``attention_chunked``, with and without a softcap."""
+    jcfg, tcfg = _capped(arch, cap)
+    jp, tp = shared_params(jcfg, seed=7)
+    jp, tp = _layer0(jp["layers"])["attn"], _layer0(tp["layers"])["attn"]
+    xj, xt = _x(np.random.default_rng(7), 2, 64, jcfg.d_model)
+    got = tl.attention_chunked(tcfg, tp, xt, tl.positions_for(tcfg, 2, 64), blk=16)
+    want = jl.attention_chunked(jcfg, jp, xj, jl.positions_for(jcfg, 2, 64), blk=16)
+    np.testing.assert_allclose(np32(got), np32(want), rtol=1e-4, atol=1e-4)
+
+
+def test_prefill_goes_block_by_block_past_the_threshold(monkeypatch):
+    """Past ``CHUNKED_ATTN_THRESHOLD`` the plain route is the chunked one
+    (threshold lowered to 32 for a 64-token prompt, blocks of 16): the
+    same output as the reference's full attention, O(S·blk) logits."""
+    jcfg, tcfg = _capped("qwen2-7b", 0.5)
+    jp, tp = shared_params(jcfg, seed=8)
+    jp, tp = _layer0(jp["layers"])["attn"], _layer0(tp["layers"])["attn"]
+    calls = []
+    core = tl._chunked_core
+
+    def spy(q, k, v, softcap, blk):
+        calls.append(q.shape[1])
+        return core(q, k, v, softcap, 16)
+
+    monkeypatch.setattr(tl, "CHUNKED_ATTN_THRESHOLD", 32)
+    monkeypatch.setattr(tl, "_chunked_core", spy)
+    xj, xt = _x(np.random.default_rng(8), 2, 64, jcfg.d_model)
+    got = tl.attention_prefill(tcfg, tp, xt, tl.positions_for(tcfg, 2, 64))[0]
+    want = jl.attention_prefill(jcfg, jp, xj, jl.positions_for(jcfg, 2, 64))[0]
+    assert calls == [64]
+    np.testing.assert_allclose(np32(got), np32(want), rtol=1e-4, atol=1e-4)
 
 
 def test_attention_decode_past_the_cache_writes_nothing():

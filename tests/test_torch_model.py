@@ -39,9 +39,13 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 # deepseek-moe and qwen3-moe: the MoE family, with and without shared
 # experts (qwen3 GQA); rwkv6: the ssm family; qwen2-vl: M-RoPE, with
 # sections that fit the reduced head_dim of 16 (half 8 = 2 + 3 + 3), so
-# that all three position streams are live
+# that all three position streams are live; gemma with Gemma-2's logit
+# softcap (50.0) in every attention path, and with a cap of 0.5 that
+# bites on the reduced model's logits
 ARCHS = {
     "gemma-2b": {"vocab": 250},
+    "gemma-2b-softcap": {"vocab": 250, "attn_logit_softcap": 50.0},
+    "gemma-2b-softcap-tight": {"vocab": 250, "attn_logit_softcap": 0.5},
     "qwen2-7b": {},
     "qwen2-7b-gqa": {"n_kv_heads": 2},
     "zamba2-2.7b": {},
@@ -54,7 +58,7 @@ MOE = ["deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
 
 def _cfgs(name):
-    arch = name.removesuffix("-gqa")
+    arch = name.removesuffix("-gqa").removesuffix("-softcap-tight").removesuffix("-softcap")
     return (jax_config(arch).reduced(**ARCHS[name]),
             port_config(arch).reduced(**ARCHS[name]))
 

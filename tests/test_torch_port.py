@@ -37,8 +37,14 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.models, repro_torch.weights, repro_torch.obs\n"
         "import repro_torch.configs.hpcc, repro_torch.core, repro_torch.train\n"
         "import repro_torch.train.checkpoint, repro_torch.launch.train\n"
+        "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.dist.memmodel\n"
+        "import repro_torch.core.torch_bridge, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.distributed_init, repro_torch.launch._torch_selftest\n"
+        "import torch.distributed as dist\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
+        "if dist.is_available() and dist.is_initialized():\n"
+        "    bad.append('a torch.distributed process group')\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
