@@ -37,8 +37,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    shapes (``prefill_softcap``, ``long_prefill_softcap``) in the same call
    as the uncapped rows; the SSD scan at zamba2-2.7b's prefill
    and at a 4096-token prompt (``hybrid_long_prefill``), each with its bound share;
+   the SSD scan's fp32 instance (the FMA kernel) at zamba2-2.7b's prefill;
    the triad at 2^20 (the HPCC config's size) and at 2^26 elements (each
-   array 4x the 50 MB L2).
+   array 4x the 50 MB L2), and against ``torch.add(b, c, alpha=s)`` in
+   turns (kernel, add, add, kernel; 6 rounds) at 2^20 and 2^26 fp32 and
+   2^26 bf16, with the median and spread of each.
 5. stream: the paper's STREAM protocol (``benchmarks/hpcc.py``,
    ``_stream_body``) through ``repro_torch.kernels.ops.triad`` at the HPCC
    config's ``stream_elems_per_proc`` and at 2^26 fp32 elements: one
@@ -111,11 +114,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    group at the ``train`` phase's settings (fp32, 4 x 128, remat, 10
    steps): its losses bitwise equal to the ``train`` phase's, its step
    p50 and peak memory, and, from one profiled step, the NCCL
-   all-reduce's device ms a step with its bytes; (c) ``dist.memmodel.
+   all-reduce's device ms a step with its bytes; the training must leave
+   no more than 256 MiB above what the phase found allocated once its
+   params and moments are gone (the large blocks left, and what a
+   ``gc.collect`` frees, are printed); (c) ``dist.memmodel.
    analytic_memory`` for gemma-2b at (1, 1) beside the measured peaks
    (``train`` at 4 x 128 beside the ``train`` phase's and this phase's,
    ``decode`` at 4 slots and 512 beside ``serve``'s), with
-   ``param_bytes_per_device`` equal to the served bf16 params' bytes.
+   ``param_bytes_per_device`` equal to the served bf16 params' bytes, and
+   the model's per-rank arithmetic for training gemma-2b and qwen2-vl-72b
+   at 4 x 128 on (data, model) meshes (1, 1), (1, 8) and (2, 4).
+20. serve_mesh: ``serve`` again, on the same one-rank NCCL group, through
+   ``ContinuousBatchingEngine(..., mesh=make_local_mesh(1, 1))`` (the
+   params ``init_params(..., mesh=)``'s blocks, whole at model = 1; the
+   step's packed block all-gathered over each mesh axis before its copy
+   to the host): every request's tokens, the sampled one included, and
+   the launch counts bitwise equal to ``serve``'s; the collectives' calls
+   and device ms of one profiled decode step; TPOT p50 and tokens/s
+   beside ``serve``'s; the decode profile's host ops a step (every CPU
+   op's own time) beside a meshless engine's on the same params, in
+   turns (mesh, meshless, meshless, mesh), so the mesh path's host cost
+   reads apart; the peak above what the phase found allocated.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -126,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import re
@@ -191,13 +211,14 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe", "serve_ssm"),
+        "time_row": "prefill",
+        "paths": ("serve", "serve_hybrid", "serve_moe", "serve_ssm", "serve_mesh"),
     },
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe"),
+        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe", "serve_mesh"),
     },
     "ssd_scan": {
         "route": "cuda",
@@ -649,34 +670,75 @@ def time_rmsnorm(gen) -> dict:
 
 
 def time_ssd(gen) -> dict:
-    """The SSD scan's rows of the time phase (bf16, the mma kernel), by
-    label: the serve prefill and a 4096-token prompt, with the kernel's
-    blocks (one per (b, h); 3 fit an SM) and its bound share."""
+    """The SSD scan's rows of the time phase, by label: the bf16 mma
+    kernel at the serve prefill and a 4096-token prompt, and the fp32 FMA
+    kernel at the serve prefill, with the kernel's blocks (one per (b, h);
+    3 of the bf16 kernel fit an SM) and its bound share."""
     from repro_torch.kernels import ssd_scan as ss
 
     rows = {}
-    # 16 rotating sets of ~5 MB at the serve shape; 4 of ~45 MB at S = 4096
-    for label, shape, n_sets in (("prefill", SSD_SHAPE, 16),
-                                 ("hybrid_long_prefill", SSD_LONG_SHAPE, 4)):
+    # 16 rotating sets of ~5 MB at the serve shape; 4 of ~45 MB at S = 4096;
+    # the fp32 instance (the FMA kernel, on no serve path: the fp32 parity
+    # phases run it) at the serve shape, 8 sets of ~10 MB
+    for label, shape, n_sets, dtype in (("prefill", SSD_SHAPE, 16, torch.bfloat16),
+                                        ("hybrid_long_prefill", SSD_LONG_SHAPE, 4, torch.bfloat16),
+                                        ("prefill_fp32", SSD_SHAPE, 8, torch.float32)):
         b, s, h, p, n, q = shape
-        sets = [_ssd_inputs(gen, b, s, h, p, n, torch.bfloat16) for _ in range(n_sets)]
-        # bytes: bf16 x in, y out; fp32 dt in, state out; bf16 B, C in.
+        sets = [_ssd_inputs(gen, b, s, h, p, n, dtype) for _ in range(n_sets)]
+        # bytes: x in, y out, B, C in, in the dtype; fp32 dt in, state out.
         # operations: per (b, h, chunk) the lower triangle of C B^T and of
         # M X (Q(Q+1)/2 entries of N and P products), C state and the
-        # state update (Q N P each), two flops per product, on bf16 inputs
-        bytes_ = 2 * 2 * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * 2 * b * s * n + 4 * h
+        # state update (Q N P each), two flops per product, at the dtype's
+        # peak (bf16 tensor cores; fp32 outside them)
+        e = 2 if dtype == torch.bfloat16 else 4
+        bytes_ = 2 * e * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * e * b * s * n + 4 * h
         tri = q * (q + 1) // 2
         flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
         row = rows[label] = {
-            "shape": list(shape), "dtype": "bfloat16", "blocks": b * h,
+            "shape": list(shape), "dtype": str(dtype).removeprefix("torch."), "blocks": b * h,
             "ms": device_ms(lambda *a: ss.ssd_scan(*a, q), sets),
             "plain_ms": device_ms(lambda *a: ss.ssd_plain(*a, q, return_state=True), sets),
             "library_ms": None,  # no single PyTorch call computes the SSD scan
-            **_bound(bytes_, flops, BF16_FLOPS),
+            **_bound(bytes_, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS),
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         del sets
     return rows
+
+
+# the triad against torch.add in turns: sizes as the time phase's rows
+TRIAD_TURN_ROWS = (("hpcc_fp32", 2**20, torch.float32, 24), ("stream_fp32", 2**26, torch.float32, 3),
+                   ("stream_bf16", 2**26, torch.bfloat16, 3))
+
+
+def triad_in_turns(gen, rounds: int = 6) -> dict:
+    """The triad kernel and ``torch.add(b, c, alpha=s)`` timed in turns
+    (kernel, add, add, kernel) ``rounds`` times at each size, each reading
+    a ``device_ms`` of CUDA-graph replays on the same input sets: the
+    median and the spread (max - min) of each, and whether the kernel's
+    median lies above the add's by more than either spread."""
+    from repro_torch.kernels import stream_triad as st
+
+    fns = {"kernel": lambda b, c: st.stream_triad(b, c, 3.0),
+           "add": lambda b, c: torch.add(b, c, alpha=3.0)}
+    out = {}
+    for label, n, dtype, n_sets in TRIAD_TURN_ROWS:
+        sets = [tuple(torch.randn(n, generator=gen, device="cuda").to(dtype) for _ in range(2))
+                for _ in range(n_sets)]
+        ms = {"kernel": [], "add": []}
+        for _ in range(rounds):
+            for kind in ("kernel", "add", "add", "kernel"):
+                ms[kind].append(device_ms(fns[kind], sets))
+        row = {"n": n, "dtype": str(dtype).removeprefix("torch."), "rounds": rounds, "ms": ms}
+        for kind, xs in ms.items():
+            row[f"{kind}_median_ms"] = float(np.median(xs))
+            row[f"{kind}_spread_ms"] = max(xs) - min(xs)
+        row["kernel_minus_add_median_ms"] = row["kernel_median_ms"] - row["add_median_ms"]
+        row["kernel_slower_beyond_spread"] = row["kernel_minus_add_median_ms"] > max(
+            row["kernel_spread_ms"], row["add_spread_ms"])
+        out[label] = row
+        del sets
+    return out
 
 
 def phase_time(card: dict) -> dict:
@@ -710,9 +772,11 @@ def phase_time(card: dict) -> dict:
         }
         del sets
     torch.cuda.empty_cache()
+    turns = triad_in_turns(gen)
+    torch.cuda.empty_cache()
     emit("time", card=card["nvidia_smi"], kernels=[
         {"kernel": k, "at": label, **v} for (k, label), v in times.items()
-    ])
+    ], triad_in_turns=turns)
     return times
 
 
@@ -765,7 +829,9 @@ def _profile_decode(eng, steps: int = 8) -> dict:
     cost inflates the wall time, so the idle share is an upper bound.
     For a MoE model also the expert products' device time (input shapes
     recorded for it alone); for an ssm model the device time of widening
-    the bf16 weights to fp32 (input shapes recorded for it)."""
+    the bf16 weights to fp32 (input shapes recorded for it).  The host
+    side of the decode steps: every CPU op's own time, in total and the
+    largest."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
@@ -790,6 +856,8 @@ def _profile_decode(eng, steps: int = 8) -> dict:
     eng.run()
     dec = _device_time(prof, cfg)
     busy_s, rows = dec["busy_s"], dec["rows"]
+    host = [(e.key, e.count, e.self_cpu_time_total) for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CUDA]
     out = {
         "steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_s * 1e3 / steps,
@@ -799,6 +867,12 @@ def _profile_decode(eng, steps: int = 8) -> dict:
                 for k, c, us in sorted(rows, key=lambda r: -r[2])[:10]],
         "top_ops": [{"op": k, "calls_per_step": c / steps, "ms_per_step": us * 1e-3 / steps}
                     for k, c, us in sorted(dec["ops"], key=lambda r: -r[2])[:12]],
+        # the host side: every CPU op's own time (the profiler's cost in it)
+        "host_self_ms_per_step": sum(r[2] for r in host) * 1e-3 / steps,
+        "host_calls_per_step": sum(r[1] for r in host) / steps,
+        "top_host_ops": [{"op": k, "calls_per_step": c / steps,
+                          "self_ms_per_step": us * 1e-3 / steps}
+                         for k, c, us in sorted(host, key=lambda r: -r[2])[:12]],
         "admission_step": {"wall_ms": admit_wall * 1e3,
                            "device_busy_ms": admit["busy_s"] * 1e3,
                            "device_calls": sum(r[1] for r in admit["rows"])},
@@ -903,20 +977,26 @@ def phase_stream(card: dict, reps: int = 5) -> dict:
     return out
 
 
-def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dict:
+def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve", mesh=None,
+                reference: dict | None = None) -> dict:
+    """A serve phase: ``arch`` at full width through the engine (with
+    ``mesh``, over it, its params ``init_params``' blocks).  With
+    ``reference`` (an earlier phase's result on the same requests) every
+    request's tokens and the launch counts must equal its own."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.serve import ContinuousBatchingEngine
 
     cfg = get_config(arch)
     geo = dict(slots=4, prefill_pad=128, max_seq=512, device="cuda")
+    held = torch.cuda.memory_allocated()  # what earlier phases left allocated
     torch.cuda.reset_peak_memory_stats()  # the peak is this phase's own
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda", mesh=mesh)
     # init_params draws each leaf in fp32 before its cast: its peak apart
     # from the serving one
     init_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    eng = ContinuousBatchingEngine(cfg, params, **geo)
+    eng = ContinuousBatchingEngine(cfg, params, mesh=mesh, **geo)
     eng.submit([1, 2, 3], max_new=2)  # warm-up: first cuBLAS calls, kernel loads
     eng.run()
     eng.reset_stats()
@@ -935,17 +1015,7 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
     counters = _counters()
     for mod in counters.values():
         mod.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    live = [submit(eng, r) for r in reqs[:6]]
-    steps = 0
-    while not eng.sched.idle:
-        eng.step()
-        steps += 1
-        if steps == 3:  # two arrive mid-decode
-            live += [submit(eng, r) for r in reqs[6:]]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    live, wall = _drive(eng, reqs, submit)
     launches = {name: mod.launches for name, mod in counters.items()}
 
     stats = eng.serve_stats()
@@ -956,28 +1026,57 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
         if len(req.tokens) != r["max_new"] or not all(0 <= t < cfg.vocab for t in req.tokens):
             raise AssertionError(f"request {req.rid}: {len(req.tokens)} tokens, want {r['max_new']}")
 
-    # the scheduler property at full width: greedy requests re-run alone
-    iso_rows = [0, 6]  # greedy; 6 arrived mid-decode
-    for i in iso_rows:
-        iso = ContinuousBatchingEngine(cfg, params, **geo)
-        submit(iso, reqs[i])
-        (req,) = iso.run()
-        if req.tokens != live[i].tokens:
-            raise AssertionError(f"request {i}: tokens alone differ from scheduled")
+    iso_rows, extra = [], {}
+    if reference is None:
+        # the scheduler property at full width: greedy requests re-run alone
+        iso_rows = [0, 6]  # greedy; 6 arrived mid-decode
+        for i in iso_rows:
+            iso = ContinuousBatchingEngine(cfg, params, **geo)
+            submit(iso, reqs[i])
+            (req,) = iso.run()
+            if req.tokens != live[i].tokens:
+                raise AssertionError(f"request {i}: tokens alone differ from scheduled")
+            del iso
+    else:
+        got = [req.tokens for req in live]
+        if got != reference["request_tokens"]:
+            raise AssertionError(f"{phase}: tokens differ from {reference['phase']}'s")
+        if launches != reference["launches"]:
+            raise AssertionError(f"{phase}: launches {launches}, {reference['phase']}'s "
+                                 f"{reference['launches']}")
+        extra = {"tokens_bitwise_equal": reference["phase"],
+                 f"{reference['phase']}_tpot_p50_ms": reference["tpot_p50_ms"],
+                 f"{reference['phase']}_tokens_per_s": reference["tokens_per_s"]}
+    if mesh is not None:
+        extra["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        extra["collectives"] = _profile_collectives(eng)
 
     profile = _profile_decode(eng)
+    if mesh is not None:
+        # the same profile of a meshless engine on the same params, in
+        # turns with the mesh engine's (mesh, meshless, meshless, mesh):
+        # the host ops a step that the mesh path adds
+        plain = ContinuousBatchingEngine(cfg, params, **geo)
+        plain.submit([1, 2, 3], max_new=2)
+        plain.run()
+        extra["meshless_profile"] = _profile_decode(plain)
+        turns = {"mesh": [profile], "meshless": [extra["meshless_profile"],
+                                                 _profile_decode(plain)]}
+        turns["mesh"].append(_profile_decode(eng))
+        extra["host_self_ms_per_step_in_turns"] = {
+            kind: [p["host_self_ms_per_step"] for p in ps] for kind, ps in turns.items()}
+        del plain
     serving_peak = torch.cuda.max_memory_allocated()
     peak = max(init_peak, serving_peak)
     card_mem = torch.cuda.get_device_properties(0).total_memory
     if peak >= card_mem:
         raise AssertionError(f"peak memory {peak} bytes over the card's {card_mem}")
-    extra = {}
     if cfg.family == "moe":
         # every expert's weights read once, the least a step of the batched
         # products over all experts moves (decode_step at cap slots * top_k)
         w = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff_expert * 2
         k = cfg.moe_top_k
-        extra = {"moe_caps": {"prefill": geo["slots"] * geo["prefill_pad"] * k,
+        extra |= {"moe_caps": {"prefill": geo["slots"] * geo["prefill_pad"] * k,
                               "decode": geo["slots"] * k},
                  "expert_weight_bytes": w,
                  "expert_weight_read_bound_ms": w / HBM_BYTES_PER_S * 1e3}
@@ -989,7 +1088,7 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
         # product: the least a decode step of JAX's promoted products
         # moves, beside the bf16 weights read once
         n = sum(p.numel() for p in leaves(params["layers"]) if p.dim() == 3)
-        extra = {"layer_weight_elems": n,
+        extra |= {"layer_weight_elems": n,
                  "widen_bound_ms": 6 * n / HBM_BYTES_PER_S * 1e3,
                  "widened_read_bound_ms": 4 * n / HBM_BYTES_PER_S * 1e3,
                  "bf16_weight_read_bound_ms": 2 * n / HBM_BYTES_PER_S * 1e3}
@@ -1007,13 +1106,58 @@ def phase_serve(card: dict, arch: str = "gemma-2b", phase: str = "serve") -> dic
         "isolated_bitwise_equal": iso_rows,
         "peak_mem_gib": peak / 2**30, "card_mem_gib": card_mem / 2**30,
         "init_peak_mem_gib": init_peak / 2**30, "serving_peak_mem_gib": serving_peak / 2**30,
+        "allocated_at_start_gib": held / 2**30,
+        "peak_above_start_gib": (peak - held) / 2**30,
         **extra, "profile": profile,
     }
     emit(phase, **out)
-    del eng, iso, params
+    out.update(phase=phase, request_tokens=[req.tokens for req in live])
+    del eng, params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return out
+
+
+def _drive(eng, reqs, submit) -> tuple[list, float]:
+    """The serve phases' requests through ``eng``: six, then two more
+    after the third step (mid-decode), drained; (requests, host wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live = [submit(eng, r) for r in reqs[:6]]
+    steps = 0
+    while not eng.sched.idle:
+        eng.step()
+        steps += 1
+        if steps == 3:  # two arrive mid-decode
+            live += [submit(eng, r) for r in reqs[6:]]
+    torch.cuda.synchronize()
+    return live, time.perf_counter() - t0
+
+
+def _profile_collectives(eng) -> dict:
+    """One decode step of ``eng`` (every slot live) under torch.profiler:
+    the NCCL kernels' calls and device ms, the collectives' host calls
+    (the ``c10d``/``nccl`` record functions), and the step's device busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(eng.slots):
+        eng.submit([5 + i, 6 + i], max_new=4)
+    eng.step()  # the admission and a first decode step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    dev = _device_time(prof, eng.cfg)
+    nccl = [r for r in dev["rows"] if "nccl" in r[0].lower()]
+    host = [{"op": e.key, "calls": e.count, "cpu_ms": e.cpu_time_total * 1e-3}
+            for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CUDA
+            and ("nccl" in e.key.lower() or "c10d" in e.key.lower())]
+    return {"decode_steps": 1, "nccl_kernels": [{"name": k[:90], "calls": c, "ms": us * 1e-3}
+                                                for k, c, us in nccl],
+            "nccl_calls": sum(c for _, c, _ in nccl),
+            "nccl_device_ms": sum(us for _, _, us in nccl) * 1e-3,
+            "collective_host_ops": host, "device_busy_ms": dev["busy_s"] * 1e3}
 
 
 def _to_cpu(tree: dict) -> dict:
@@ -1342,11 +1486,11 @@ def _profile_allreduce(cfg, opt, ts, params: dict, opt_state: dict, batch: int, 
     time of the all-reduce calls, beside the step's device busy."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.train.data import shard_batch, synthetic_batch
+    from repro_torch.train.data import synthetic_batch
     from repro_torch.train.train_step import make_train_step
 
-    fn = make_train_step(cfg, opt, ts, group=mesh.get_group("data"))
-    b = shard_batch(cfg, synthetic_batch(cfg, batch, seq, step, device="cuda"), mesh)
+    fn = make_train_step(cfg, opt, ts, mesh=mesh)
+    b = synthetic_batch(cfg, batch, seq, step, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1370,17 +1514,15 @@ def _ab_steps(cfg, opt, ts, params: dict, opt_state: dict, batch: int, seq: int,
     params, in turns (plain, group, group, plain) ``rounds`` times, each
     step ending in its metrics' copy to the host: the cost of the
     reduction on the step, apart from the two phases' other conditions."""
-    from repro_torch.train.data import shard_batch, synthetic_batch
+    from repro_torch.train.data import synthetic_batch
     from repro_torch.train.train_step import make_train_step
 
     fns = {"plain": make_train_step(cfg, opt, ts),
-           "group": make_train_step(cfg, opt, ts, group=mesh.get_group("data"))}
+           "group": make_train_step(cfg, opt, ts, mesh=mesh)}
     out = {"plain": [], "group": []}
     for i in range(rounds):
         for kind in ("plain", "group", "group", "plain"):
             b = synthetic_batch(cfg, batch, seq, step + i, device="cuda")
-            if kind == "group":
-                b = shard_batch(cfg, b, mesh)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, _, m = fns[kind](params, opt_state, b)
@@ -1390,17 +1532,52 @@ def _ab_steps(cfg, opt, ts, params: dict, opt_state: dict, batch: int, seq: int,
     return out
 
 
-def phase_dist(card: dict, train: dict, serve: dict, steps: int = 10, batch: int = 4,
-               seq: int = 128) -> dict:
-    """The distribution slice on one card: (a) the torch bridge's self-test
-    on a one-rank NCCL group, started through ``distributed_init``'s
-    environment path on 127.0.0.1; (b) full-width gemma-2b trained through
-    ``repro_torch.launch.train`` with ``--data-model 1 1`` on that group
-    (the CLI's flags, configs, mesh and loop; no checkpoint, which at fp32
-    is 30 GB of p, m and v), its losses bitwise equal to the ``train``
-    phase's; (c) the analytic memory model beside the measured peaks."""
+def _memory_holders(min_bytes: int = 2**26) -> dict:
+    """The allocated blocks of at least ``min_bytes``: their count, total
+    bytes and the largest sizes."""
+    sizes = sorted((blk["size"] for seg in torch.cuda.memory._snapshot()["segments"]
+                    for blk in seg["blocks"]
+                    if blk["state"] == "active_allocated" and blk["size"] >= min_bytes),
+                   reverse=True)
+    return {"blocks": len(sizes), "bytes": sum(sizes), "largest": sizes[:8]}
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A one-rank NCCL group on 127.0.0.1, started through
+    ``distributed_init``'s environment path: yields (world spec, backend),
+    and destroys the group on the way out, whatever happened."""
     import torch.distributed as dist
 
+    from repro_torch.launch import distributed_init as di
+
+    env = {"REPRO_COORD": f"127.0.0.1:{_free_port()}", "REPRO_NUM_HOSTS": "1",
+           "REPRO_HOST_ID": "0", "REPRO_LOCAL_RANK": "0"}
+    spec = di.world_from_env(env)
+    backend = di.init_process_group(spec, "cuda")
+    try:
+        yield spec, backend
+    finally:
+        dist.destroy_process_group()
+
+
+# (data, model) meshes whose per-rank memory the dist phase gives, as the
+# model's arithmetic: one card, a node's 8 cards on the model axis, and
+# 2 x 4
+MEMORY_MESHES = ((1, 1), (1, 8), (2, 4))
+
+
+def phase_dist(card: dict, train: dict, serve: dict, spec, backend: str, steps: int = 10,
+               batch: int = 4, seq: int = 128) -> dict:
+    """The distribution slice on one card, on the NCCL group of
+    ``nccl_world``: (a) the torch bridge's self-test; (b) full-width
+    gemma-2b trained through ``repro_torch.launch.train`` with
+    ``--data-model 1 1`` on that group (the CLI's flags, configs, mesh and
+    loop; no checkpoint, which at fp32 is 30 GB of p, m and v), its
+    losses bitwise equal to the ``train`` phase's; (c) the analytic
+    memory model beside the measured peaks, and the per-rank totals of
+    gemma-2b and qwen2-vl-72b training at the ``MEMORY_MESHES``."""
+    from repro_torch.configs import get_config
     from repro_torch.dist.memmodel import analytic_memory, param_bytes_per_device
     from repro_torch.launch import distributed_init as di
     from repro_torch.launch import train as cli
@@ -1408,79 +1585,93 @@ def phase_dist(card: dict, train: dict, serve: dict, steps: int = 10, batch: int
     from repro_torch.train.optimizer import leaves
     from repro_torch.train.train_step import init_opt_state
 
-    env = {"REPRO_COORD": f"127.0.0.1:{_free_port()}", "REPRO_NUM_HOSTS": "1",
-           "REPRO_HOST_ID": "0", "REPRO_LOCAL_RANK": "0"}
-    spec = di.world_from_env(env)
-    backend = di.init_process_group(spec, "cuda")
-    try:
-        # (a) the self-test, its rank-0 line read back
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            di.run_target("repro_torch.launch._torch_selftest:main", [])
-        selftest = buf.getvalue().strip()
-        if "TORCH_BRIDGE_SELFTEST_OK world=1 backend=nccl" not in selftest:
-            raise AssertionError(f"self-test: {selftest!r}")
-        selftest_s = time.perf_counter() - t0
+    # (a) the self-test, its rank-0 line read back
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        di.run_target("repro_torch.launch._torch_selftest:main", [])
+    selftest = buf.getvalue().strip()
+    if "TORCH_BRIDGE_SELFTEST_OK world=1 backend=nccl" not in selftest:
+        raise AssertionError(f"self-test: {selftest!r}")
+    selftest_s = time.perf_counter() - t0
 
-        # (b) training on the group, as the CLI runs it
-        argv = ["--arch", "gemma-2b", "--device", "cuda", "--steps", str(steps),
-                "--batch", str(batch), "--seq", str(seq), "--data-model", "1", "1"]
-        args = cli.parse_args(argv)
-        cfg, opt, ts = cli.configs(args)
-        mesh = cli.data_mesh(args.data_model, torch.device("cuda"))
-        torch.cuda.reset_peak_memory_stats()
-        params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
-        opt_state = init_opt_state(cfg, params, ts)
-        cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
-        before = _launch_counts()
-        torch.cuda.synchronize()
-        params, opt_state, hist = cli.train_loop(
-            cfg, opt, ts, params, opt_state, batch=args.batch, seq=args.seq, steps=args.steps,
-            device="cuda", mesh=mesh)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
-        if _launch_counts() != before:
-            raise AssertionError("data-parallel training launched kernels")
-        losses = [h["loss"] for h in hist]
-        if losses != train["loss"]:
-            raise AssertionError(f"dist losses {losses} differ from train's {train['loss']}")
-        grad_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
-        n_leaves = len(leaves(params))
-        profile = _profile_allreduce(cfg, opt, ts, params, opt_state, batch, seq, steps, mesh)
-        ab = _ab_steps(cfg, opt, ts, params, opt_state, batch, seq, steps + 1, mesh)
-        step_ms = [h["seconds"] * 1e3 for h in hist]
-        p50 = float(np.median(step_ms[1:]))
-        del params, opt_state
-        torch.cuda.empty_cache()
+    # (b) training on the group, as the CLI runs it
+    argv = ["--arch", "gemma-2b", "--device", "cuda", "--steps", str(steps),
+            "--batch", str(batch), "--seq", str(seq), "--data-model", "1", "1"]
+    args = cli.parse_args(argv)
+    cfg, opt, ts = cli.configs(args)
+    mesh = cli.data_mesh(args.data_model, torch.device("cuda"))
+    held_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    opt_state = init_opt_state(cfg, params, ts)
+    cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    params, opt_state, hist = cli.train_loop(
+        cfg, opt, ts, params, opt_state, batch=args.batch, seq=args.seq, steps=args.steps,
+        device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    cli.check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+    if _launch_counts() != before:
+        raise AssertionError("data-parallel training launched kernels")
+    losses = [h["loss"] for h in hist]
+    if losses != train["loss"]:
+        raise AssertionError(f"dist losses {losses} differ from train's {train['loss']}")
+    grad_bytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    n_leaves = len(leaves(params))
+    profile = _profile_allreduce(cfg, opt, ts, params, opt_state, batch, seq, steps, mesh)
+    ab = _ab_steps(cfg, opt, ts, params, opt_state, batch, seq, steps + 1, mesh)
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = float(np.median(step_ms[1:]))
+    # the training leaves nothing allocated once its params and moments
+    # are gone (a reference cycle once held the last step's views of the
+    # params until the garbage collector ran: 9.65 GiB)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    left_after_train = torch.cuda.memory_allocated()
+    holders = _memory_holders()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after_gc = torch.cuda.memory_allocated()
+    if left_after_train > held_at_start + 2**28:
+        raise AssertionError(f"training left {left_after_train} bytes allocated "
+                             f"({held_at_start} at its start; {after_gc} after gc.collect): "
+                             f"{holders}")
 
-        # (c) the analytic memory model beside the measured peaks
-        one = {"data": 1, "model": 1}
-        served = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-        served_bytes = sum(p.numel() * p.element_size() for p in leaves(served))
-        del served
-        torch.cuda.empty_cache()
-        model_bytes = param_bytes_per_device(cfg, one)
-        if model_bytes != served_bytes:
-            raise AssertionError(f"param_bytes_per_device {model_bytes} != {served_bytes}")
-        mem_train = analytic_memory(cfg, one, "train", batch, seq)
-        mem_decode = analytic_memory(cfg, one, "decode", 4, 512)
-        gib = 2**30
-        memory = {
-            "param_bytes_per_device": model_bytes, "served_bf16_param_bytes": served_bytes,
-            "train": {"analytic": mem_train, "analytic_total_gib": mem_train["total"] / gib,
-                      "measured_train_phase_gib": train["max_memory_allocated_gib"],
-                      "measured_dist_phase_gib": peak / gib,
-                      "measured_over_analytic": peak / mem_train["total"]},
-            "decode": {"analytic": mem_decode, "analytic_total_gib": mem_decode["total"] / gib,
-                       "measured_serve_phase_gib": serve["peak_mem_gib"],
-                       "measured_serving_gib": serve["serving_peak_mem_gib"],
-                       "serving_over_analytic": serve["serving_peak_mem_gib"] * gib
-                       / mem_decode["total"]},
-        }
-    finally:
-        dist.destroy_process_group()
+    # (c) the analytic memory model beside the measured peaks
+    one = {"data": 1, "model": 1}
+    served = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    served_bytes = sum(p.numel() * p.element_size() for p in leaves(served))
+    del served
+    torch.cuda.empty_cache()
+    model_bytes = param_bytes_per_device(cfg, one)
+    if model_bytes != served_bytes:
+        raise AssertionError(f"param_bytes_per_device {model_bytes} != {served_bytes}")
+    mem_train = analytic_memory(cfg, one, "train", batch, seq)
+    mem_decode = analytic_memory(cfg, one, "decode", 4, 512)
+    gib = 2**30
+    memory = {
+        "param_bytes_per_device": model_bytes, "served_bf16_param_bytes": served_bytes,
+        "train": {"analytic": mem_train, "analytic_total_gib": mem_train["total"] / gib,
+                  "measured_train_phase_gib": train["max_memory_allocated_gib"],
+                  "measured_dist_phase_gib": peak / gib,
+                  "measured_over_analytic": peak / mem_train["total"]},
+        "decode": {"analytic": mem_decode, "analytic_total_gib": mem_decode["total"] / gib,
+                   "measured_serve_phase_gib": serve["peak_mem_gib"],
+                   "measured_serving_gib": serve["serving_peak_mem_gib"],
+                   "serving_over_analytic": serve["serving_peak_mem_gib"] * gib
+                   / mem_decode["total"]},
+        # the model's arithmetic (bf16 params and grads, fp32 moments,
+        # remat's layer boundaries), no measurement: what the model axis
+        # divides and what it does not
+        "model_axis_train_4x128": {
+            arch: {f"{d}x{m}": analytic_memory(get_config(arch), {"data": d, "model": m},
+                                               "train", batch, seq)
+                   for d, m in MEMORY_MESHES}
+            for arch in ("gemma-2b", "qwen2-vl-72b")},
+    }
     out = {"card": card["nvidia_smi"], "backend": backend, "world": spec.world_size,
            "init_method": spec.init_method, "selftest": selftest, "selftest_s": selftest_s,
            "entry_point": "repro_torch.launch.train (parse_args, configs, data_mesh, "
@@ -1489,6 +1680,9 @@ def phase_dist(card: dict, train: dict, serve: dict, steps: int = 10, batch: int
            "step_ms": step_ms, "step_ms_p50_2_to_10": p50,
            "train_step_ms_p50_2_to_10": train["step_ms_p50_2_to_10"],
            "max_memory_allocated_gib": peak / gib,
+           "allocated_after_training_gib": left_after_train / gib,
+           "allocated_at_start_gib": held_at_start / gib,
+           "held_after_training": holders, "allocated_after_gc_collect_gib": after_gc / gib,
            # one all-reduce a gradient leaf (fp32) and one of the loss
            "allreduce_bytes_per_step": grad_bytes + 4, "allreduce_calls_per_step": n_leaves + 1,
            "ab_step_ms": ab, "profile": profile, "memory": memory}
@@ -1533,7 +1727,12 @@ def main() -> int:
     phase_parity(dataclasses.replace(get_config("gemma-2b"), n_layers=2, attn_logit_softcap=50.0),
                  "parity_softcap", cut="n_layers 18 -> 2 as in parity; attn_logit_softcap "
                                        "None -> 50.0, Gemma-2's published cap")
-    phase_dist(card, train, paths["serve"])
+    with nccl_world() as (spec, backend):
+        phase_dist(card, train, paths["serve"], spec, backend)
+        from repro_torch.launch.mesh import make_local_mesh
+
+        paths["serve_mesh"] = phase_serve(card, "gemma-2b", "serve_mesh",
+                                          mesh=make_local_mesh(1, 1), reference=paths["serve"])
 
     kernels = []
     for name, meta in KERNELS.items():

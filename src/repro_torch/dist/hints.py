@@ -21,7 +21,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-__all__ = ["constrain", "mesh_context", "current_mesh"]
+__all__ = ["constrain", "mesh_context", "current_mesh", "rows_split"]
 
 _state = threading.local()
 
@@ -29,16 +29,27 @@ _state = threading.local()
 def current_mesh():
     """The mesh installed by the innermost ``mesh_context`` (or None)."""
     stack = getattr(_state, "meshes", None)
-    return stack[-1] if stack else None
+    return stack[-1][0] if stack else None
+
+
+def rows_split() -> bool:
+    """Whether the innermost ``mesh_context`` said that the batch's rows
+    are split over its data axes (False with no mesh)."""
+    stack = getattr(_state, "meshes", None)
+    return bool(stack) and stack[-1][1]
 
 
 @contextmanager
-def mesh_context(mesh):
-    """Install ``mesh`` (a ``DeviceMesh``) as the target of ``constrain``."""
+def mesh_context(mesh, rows_split: bool = False):
+    """Install ``mesh`` (a ``DeviceMesh``) as the target of ``constrain``.
+    ``rows_split``: each rank of the data axes holds its own rows of the
+    batch (``dist.sharding.batch_shardings`` split them), so a body that
+    needs the whole batch's statistics (the MoE capacity) gathers them
+    over the data axis; False where every rank holds the same rows."""
     stack = getattr(_state, "meshes", None)
     if stack is None:
         stack = _state.meshes = []
-    stack.append(mesh)
+    stack.append((mesh, rows_split))
     try:
         yield mesh
     finally:

@@ -17,15 +17,21 @@ that step's batch a second time).
 
 Over a world of ranks (one process a card, started by
 ``repro_torch.launch.distributed_init`` or torchrun), ``--data-model D
-M`` lays a (data, model) mesh over it; without the flag a world of W > 1
-ranks takes (W, 1), as the reference takes (device count, 1).  Each rank
-trains on its rows of the global batch (``dist.sharding.
-batch_shardings``), the gradients are averaged over the data axis before
-the optimizer and the loss is the global mean (``train.train_step``);
-params and moments stay replicated, and the CLI checks at the start and
-the end that the replicas agree bit for bit.  Rank 0 writes the
-checkpoints while the others wait at a barrier; ``--resume`` restores on
-every rank.  M > 1 (a sharded model axis) is not ported yet.
+M`` lays a (data, model) mesh over it (rank r at data r // M, model
+r % M); without the flag a world of W > 1 ranks takes (W, 1), as the
+reference takes (device count, 1).  Each rank trains on its rows of the
+global batch (``dist.sharding.batch_shardings``: the ranks of a model
+group take the same rows), the gradients are averaged over the data
+axis before the optimizer and the loss is the global mean
+(``train.train_step``).  With M > 1 each rank holds only its blocks of
+the params and of both moments (``dist.sharding.param_shardings``,
+drawn block by block by ``init_params``), and the model gathers each
+leaf where it uses it.  The CLI checks at the start and the end that the
+replicas over the data axis agree bit for bit.  Checkpoints hold whole
+leaves in the reference's format whatever the mesh: each sharded leaf is
+gathered over its model group one at a time, rank 0 writes while the
+others wait at a barrier; ``--resume`` reads on every rank only its own
+blocks, so a run resumes on another mesh shape.
 """
 
 from __future__ import annotations
@@ -43,12 +49,9 @@ from ..configs import get_config, list_archs
 from ..models import init_params
 from ..obs import trace as _trace
 from ..train.checkpoint import CheckpointManager
-from ..train.data import batch_iterator, shard_batch
+from ..train.data import batch_iterator
 from ..train.optimizer import AdamWConfig, leaves
 from ..train.train_step import TrainStepConfig, init_opt_state, make_train_step
-
-MODEL_AXIS_TODO = ("training with a sharded model axis (--data-model D M, M > 1) is not "
-                   "ported yet: ROADMAP.md Queue 1, item 7")
 
 
 def data_mesh(data_model, device: torch.device):
@@ -63,8 +66,6 @@ def data_mesh(data_model, device: torch.device):
             return None
         data_model = (world, 1)
     data, model = data_model
-    if model > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
     if not dist.is_initialized():
         raise RuntimeError("--data-model needs a running world: start the ranks with "
                            "python -m repro_torch.launch.distributed_init or torchrun")
@@ -91,6 +92,48 @@ def _rank0(mesh) -> bool:
     return mesh is None or dist.get_rank() == 0
 
 
+def state_shardings(cfg, mesh, ef_residual: bool) -> dict:
+    """{"params", "opt_state"} placements on ``mesh``: the moments (and,
+    with ``ef_residual``, int8's residual) on their parameters'
+    placements, the step replicated."""
+    from ..dist.sharding import opt_state_shardings, param_shardings
+
+    p = param_shardings(cfg, mesh)
+    o = opt_state_shardings(cfg, mesh)
+    if ef_residual:
+        o["ef_residual"] = p
+    return {"params": p, "opt_state": o}
+
+
+def whole_trees(cfg, mesh, trees: dict) -> dict | None:
+    """``trees`` ({"params", "opt_state"}) with whole leaves, for a
+    checkpoint: on a mesh whose model axis shards leaves, each sharded
+    leaf gathered over its model group and copied to the host one at a
+    time (every rank takes part; rank 0 gets the trees, the others
+    None); else ``trees`` itself."""
+    from ..dist.shard import gather_full, model_dim
+
+    if mesh is None or dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) == 1:
+        return trees
+    keep = dist.get_rank() == 0
+
+    def walk(node, sh):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, sh[k])
+            elif model_dim(sh[k]) is None:
+                out[k] = v
+            else:
+                whole = gather_full(v, sh[k], mesh)
+                out[k] = whole.to("cpu", copy=True) if keep else None
+                del whole
+        return out
+
+    out = walk(trees, state_shardings(cfg, mesh, "ef_residual" in trees["opt_state"]))
+    return out if keep else None
+
+
 def train_loop(cfg, opt: AdamWConfig, ts: TrainStepConfig, params: dict, opt_state: dict,
                *, batch: int, seq: int, steps: int, start: int = 0, device="cuda",
                mgr: CheckpointManager | None = None, ckpt_every: int = 20, mesh=None):
@@ -101,19 +144,17 @@ def train_loop(cfg, opt: AdamWConfig, ts: TrainStepConfig, params: dict, opt_sta
     for the step).  With ``mgr``, a checkpoint of the params and the
     optimizer state is saved (async, by rank 0 on a mesh) after every
     ``ckpt_every`` steps before the last.  With ``mesh`` (from
-    ``data_mesh``) each step takes this rank's rows of the global batch
-    and reduces over the data axis.  Returns (params, opt_state,
-    history): one dict a step with ``step``, ``loss`` (on a mesh the
+    ``data_mesh``) each step hands the global batch to the train step,
+    which takes this rank's rows of it and reduces over the data axis.
+    Returns (params, opt_state, history): one dict a step with
+    ``step``, ``loss`` (on a mesh the
     global mean), ``grad_norm``, ``lr`` and ``seconds`` (host wall time
     of the step, from the call to the metrics on the host)."""
-    group = mesh.get_group("data") if mesh is not None else None
-    step_fn = make_train_step(cfg, opt, ts, group=group)
+    step_fn = make_train_step(cfg, opt, ts, mesh=mesh)
     history = []
     for step, b in batch_iterator(cfg, batch, seq, start_step=start, device=device):
         if step >= steps:
             break
-        if mesh is not None:
-            b = shard_batch(cfg, b, mesh)
         t0 = time.perf_counter()
         with _trace.span("train.step", step=step, tokens=batch * seq) as sp:
             params, opt_state, metrics = step_fn(params, opt_state, b)
@@ -127,8 +168,9 @@ def train_loop(cfg, opt: AdamWConfig, ts: TrainStepConfig, params: dict, opt_sta
                   f"gnorm {gnorm:.2f}", flush=True)
         done = step + 1
         if mgr is not None and done % ckpt_every == 0 and done < steps:
+            trees = whole_trees(cfg, mesh, {"params": params, "opt_state": opt_state})
             if _rank0(mesh):
-                mgr.save(done, {"params": params, "opt_state": opt_state}, blocking=False)
+                mgr.save(done, trees, blocking=False)
             if mesh is not None:
                 dist.barrier()
     return params, opt_state, history
@@ -183,12 +225,15 @@ def run(args: argparse.Namespace):
     mgr = CheckpointManager(ckpt_dir, keep=2)
     start = 0
     if args.resume and mgr.latest_step() is not None:
-        start, trees, _ = mgr.restore(device=dev)
+        shardings = None
+        if mesh is not None:
+            shardings = state_shardings(cfg, mesh, ts.grad_compression == "int8_ef")
+        start, trees, _ = mgr.restore(device=dev, shardings=shardings, mesh=mesh)
         params, opt_state = trees["params"], trees["opt_state"]
         if _rank0(mesh):
             print(f"[train] resumed from step {start}")
     else:
-        params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        params = init_params(cfg, seed=0, dtype=torch.float32, device=dev, mesh=mesh)
         opt_state = init_opt_state(cfg, params, ts)
     if mesh is not None:
         check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
@@ -200,9 +245,10 @@ def run(args: argparse.Namespace):
         mesh=mesh)
     if mesh is not None:
         check_replicas({"params": params, "opt_state": opt_state}, mesh.get_group("data"))
+    trees = whole_trees(cfg, mesh, {"params": params, "opt_state": opt_state})
     if _rank0(mesh):
         mgr.wait()
-        mgr.save(args.steps, {"params": params, "opt_state": opt_state})
+        mgr.save(args.steps, trees)
     if mesh is not None:
         dist.barrier()
     dt = time.perf_counter() - t0

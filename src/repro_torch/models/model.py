@@ -11,6 +11,15 @@ layer (hybrid: each group) in ``torch.utils.checkpoint`` where the
 reference wraps its scan body in ``jax.checkpoint``.  ``loss_fn`` trains
 through the kernels' plain versions (``kernels.ops.plain_kernels``): the
 kernels have no backward.
+
+Under ``dist.mesh_context(mesh)`` whose ``model`` axis shards parameters
+(``dist.sharding.param_shardings``), ``params`` holds this rank's blocks
+and the body gathers each leaf where the reference's uses it
+(``_gathered``, ``dist.shard.gather_params``): a layer's leaves inside
+its body (inside the remat region, so the backward gathers again rather
+than keep every layer's whole weights), the hybrid's shared block where
+a group or a forward uses it, and the embedding, final norm and head
+once per forward.  Off a mesh the hook is the identity.
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..dist.hints import current_mesh, mesh_context, rows_split
+from ..dist.shard import block_of, gather_params, take_block
 from ..kernels.ops import plain_kernels, plain_route
 from .config import ModelConfig
 from .layers import (
@@ -149,11 +160,35 @@ SLICED_DRAW_ELEMS = 2**31
 
 
 def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, block=None) -> torch.Tensor:
     """``repro.models.model._init_leaf``'s name rules: the SSM and RWKV
     leaves' fixed fp32 values (broadcast over the stacked lead dims), zero
     fp32 norm weights, zero biases, fan-in normal matrices (the router and
-    the (L, E, D, F) expert leaves too)."""
+    the (L, E, D, F) expert leaves too).  With ``block`` (a ``[start,
+    stop)`` range a dim) the leaf's block alone, cut from the whole draw
+    (a sliced draw part by part), so the generator's stream is the
+    meshless init's."""
+    if block is None:
+        block = [[0, n] for n in shape]
+    whole = _init_whole(gen, name, shape, dtype, device)
+    if whole is not None:
+        return take_block(whole, block)
+    scale = 1.0 / math.sqrt(shape[-2])  # fan-in
+    if math.prod(shape) <= SLICED_DRAW_ELEMS:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return take_block(x.mul_(scale).to(dtype), block)
+    (lo, hi), rest = block[0], block[1:]
+    out = torch.empty([b - a for a, b in block], dtype=dtype, device=device)
+    for i in range(shape[0]):  # every part is drawn: the stream stays the meshless one
+        x = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=device)
+        if lo <= i < hi:
+            out[i - lo].copy_(take_block(x.mul_(scale), rest))
+    return out
+
+
+def _init_whole(gen: torch.Generator, name: str, shape: tuple, dtype,
+                device: torch.device) -> torch.Tensor | None:
+    """A leaf of fixed values, whole; None for a random (fan-in normal) one."""
     if name == "A_log":
         base = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32))
         return base.to(device).expand(shape).contiguous()
@@ -172,34 +207,38 @@ def _init_leaf(gen: torch.Generator, name: str, shape: tuple, dtype,
         return torch.zeros(shape, dtype=torch.float32, device=device)  # rms weight is 1 + w
     if name.startswith("b") or len(shape) == 1:
         return torch.zeros(shape, dtype=dtype, device=device)
-    scale = 1.0 / math.sqrt(shape[-2])  # fan-in
-    if math.prod(shape) <= SLICED_DRAW_ELEMS:
-        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return x.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for part in out:
-        x = torch.randn(part.shape, generator=gen, dtype=torch.float32, device=device)
-        part.copy_(x.mul_(scale))
-    return out
+    return None
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda") -> dict:
+                device="cuda", mesh=None) -> dict:
     """Random parameters from ``seed``, made on ``device`` with a device
     generator (full width never passes through host memory).  The values
-    differ from JAX's threefry draws; shapes, dtypes and statistics match."""
+    differ from JAX's threefry draws; shapes, dtypes and statistics match.
+
+    With ``mesh``, this rank's blocks as ``dist.sharding.param_shardings``
+    places them: every rank draws every leaf in the same order from the
+    same stream and cuts it to its block before it draws the next, so the
+    blocks equal the meshless init's bit for bit and the peak is one
+    leaf, not the tree."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    shardings = None
+    if mesh is not None:
+        from ..dist.sharding import param_shardings
 
-    def build(tree):
+        shardings = param_shardings(cfg, mesh)
+
+    def build(tree, sh):
         return {
-            k: build(tree[k]) if isinstance(tree[k], dict)
-            else _init_leaf(gen, k, tree[k], dtype, dev)
+            k: build(tree[k], sh and sh[k]) if isinstance(tree[k], dict)
+            else _init_leaf(gen, k, tree[k], dtype, dev,
+                            None if sh is None else block_of(tree[k], sh[k], mesh))
             for k in sorted(tree)
         }
 
-    return build(param_shapes(cfg))
+    return build(param_shapes(cfg), shardings)
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -219,6 +258,16 @@ def _scale_embeddings(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # the scale is rounded to x's dtype first, as in JAX; a Python float
     # (not a device tensor) so that no host-to-device copy waits for the card
     return x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+
+
+def _gathered(cfg: ModelConfig, p: dict, part: str) -> dict:
+    """``p`` with every leaf the active mesh's ``model`` axis shards
+    gathered whole (``part``: "top", "layer" or "shared"); ``p`` itself
+    off a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return p
+    return gather_params(cfg, mesh, p, part)
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -265,31 +314,43 @@ def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, moe_cap=N
 
 
 def _hybrid_layers(cfg: ModelConfig, params: dict):
-    """(group, layer index in group, layer params) in order."""
+    """(group, layer index in group, layer params with its leaves whole) in
+    order."""
     groups, every = _groups(cfg)
     for g, gp in enumerate(_unstack(params["layers"], groups)):
         for e, lp in enumerate(_unstack(gp, every)):
-            yield g, e, lp
+            yield g, e, _gathered(cfg, lp, "layer")
+
+
+@contextlib.contextmanager
+def _as_in_forward(plain: bool, mesh, split: bool):
+    with plain_kernels(plain), mesh_context(mesh, rows_split=split):
+        yield
 
 
 def _remat(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant).  The recompute runs on
-    autograd's thread, where the caller's ``plain_kernels`` context is
-    not set: it is entered there again, as the forward found it."""
-    plain = plain_route()
+    (``torch.utils.checkpoint``, non-reentrant).  The recompute runs
+    after the caller's contexts have closed, and on CUDA on autograd's
+    device thread, where neither the ``plain_kernels`` switch nor the
+    thread's mesh is set: both are entered there again, as the forward
+    found them, so the recompute gathers the layer's leaves (and the
+    MoE's expert counts) as the forward did."""
+    plain, mesh, split = plain_route(), current_mesh(), rows_split()
     return checkpoint(fn, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), plain_kernels(plain)))
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _as_in_forward(plain, mesh, split)))
 
 
 def _layer_body(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
     """A dense or MoE layer: (x, its MoE aux loss or None)."""
-    x, _, _, aux = _attn_block(cfg, lp, x, positions)
+    x, _, _, aux = _attn_block(cfg, _gathered(cfg, lp, "layer"), x, positions)
     return x, aux
 
 
 def _ssm_layer(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
     """An RWKV-6 layer (time mix, then channel mix; no positions): (x, None)."""
+    lp = _gathered(cfg, lp, "layer")
     x = x + rwkv6_time_mix(cfg, lp["tm"], rms_norm(x, lp["ln1"], cfg.norm_eps))
     return x + rwkv6_channel_mix(cfg, lp["cm"], rms_norm(x, lp["ln2"], cfg.norm_eps)), None
 
@@ -297,8 +358,9 @@ def _ssm_layer(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
 def _hybrid_group(cfg: ModelConfig, layers: list, shared: dict, positions, x: torch.Tensor):
     """One hybrid group: its Mamba2 layers, then the weight-shared block."""
     for lp in layers:
+        lp = _gathered(cfg, lp, "layer")
         x = x + mamba2_block(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps))
-    return _attn_block(cfg, shared, x, positions)[0]
+    return _attn_block(cfg, _gathered(cfg, shared, "shared"), x, positions)[0]
 
 
 def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
@@ -307,6 +369,12 @@ def backbone(cfg: ModelConfig, params: dict, tokens=None, inputs_embeds=None,
     final norm, and the MoE aux loss averaged over the layers (0 for the
     other families), as the JAX forward returns it.  ``remat`` recomputes
     each layer's (hybrid: each group's) activations in the backward."""
+    return _backbone(cfg, _gathered(cfg, params, "top"), tokens, inputs_embeds,
+                     positions, remat)
+
+
+def _backbone(cfg: ModelConfig, params: dict, tokens, inputs_embeds, positions, remat: bool):
+    """``backbone`` on params whose top-level leaves are whole."""
     _require_ported(cfg)
     if inputs_embeds is None:
         x = _embed(cfg, params, tokens)
@@ -336,7 +404,8 @@ def model_forward(cfg: ModelConfig, params: dict, tokens=None,
                   inputs_embeds=None, positions=None, remat: bool = False):
     """Returns (logits (B, S, V) float32, aux loss scalar) — the padded
     vocab columns unmasked, as in the JAX forward."""
-    x, aux = backbone(cfg, params, tokens, inputs_embeds, positions, remat)
+    params = _gathered(cfg, params, "top")
+    x, aux = _backbone(cfg, params, tokens, inputs_embeds, positions, remat)
     return _head(cfg, params, x), aux
 
 
@@ -365,7 +434,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: bool = True) -> 
 
 def last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Head on (B, D) hidden states: fp32 logits, padded vocab at -1e30."""
-    return _mask_vocab_pad(cfg, _head(cfg, params, x))
+    return _mask_vocab_pad(cfg, _head(cfg, _gathered(cfg, params, "top"), x))
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +494,8 @@ def decode_state_batch_dims(cfg: ModelConfig) -> dict:
 
 
 def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                    lengths: torch.Tensor, state_dtype=torch.bfloat16):
+                    lengths: torch.Tensor, state_dtype=torch.bfloat16,
+                    moe_cap: int | None = None):
     """Bulk prefill: one forward over a right-padded request group.
 
     tokens: (B, S) right-padded; lengths: (B,) real lengths (>= 1).
@@ -439,9 +509,12 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     validity mask, in the SSM they take dt=0 and in the WKV k=0, w=1
     (identity); each
     row is computed independently of its batch companions (MoE: at the
-    drop-free expert capacity ``b * s * top_k``, as the reference runs it)."""
+    drop-free expert capacity ``b * s * top_k``, as the reference runs it;
+    ``moe_cap`` overrides it: an engine whose rows are split over ranks
+    keeps the whole batch's)."""
     _require_ported(cfg)
     b, s = tokens.shape
+    params = _gathered(cfg, params, "top")
     x = _embed(cfg, params, tokens)
     dev = x.device
     positions = positions_for(cfg, b, s, device=dev)
@@ -452,6 +525,7 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
     if cfg.family == "hybrid":
         e = cfg.hybrid_attn_every
+        shared = _gathered(cfg, params["shared"], "shared")
         for gi, ei, lp in _hybrid_layers(cfg, params):
             out, st = mamba2_prefill(cfg, lp["mix"], rms_norm(x, lp["ln"], cfg.norm_eps),
                                      valid, lengths, state_dtype=state_dtype)
@@ -459,11 +533,12 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             state["conv"][gi, ei] = st["conv"]
             state["ssm"][gi, ei] = st["ssm"]
             if ei == e - 1:
-                x, ck, cv, _ = _attn_block(cfg, params["shared"], x, positions)
+                x, ck, cv, _ = _attn_block(cfg, shared, x, positions)
                 state["k"][gi] = ck
                 state["v"][gi] = cv
     elif cfg.family == "ssm":
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            lp = _gathered(cfg, lp, "layer")
             xn1 = rms_norm(x, lp["ln1"], cfg.norm_eps)
             out, state["wkv"][i] = rwkv6_time_mix(cfg, lp["tm"], xn1, valid=valid,
                                                   return_state=True)
@@ -473,12 +548,14 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             state["tm_shift"][i] = xn1[rows, last]
             state["cm_shift"][i] = xn2[rows, last]
     else:
-        cap = b * s * cfg.moe_top_k if cfg.family == "moe" else None
+        cap = None
+        if cfg.family == "moe":
+            cap = b * s * cfg.moe_top_k if moe_cap is None else moe_cap
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x, ck, cv, _ = _attn_block(cfg, lp, x, positions, cap)
+            x, ck, cv, _ = _attn_block(cfg, _gathered(cfg, lp, "layer"), x, positions, cap)
             state["k"][i] = ck
             state["v"][i] = cv
-    return last_logits(cfg, params, x[rows, last]), state
+    return _mask_vocab_pad(cfg, _head(cfg, params, x[rows, last])), state
 
 
 def _decode_attn_block(cfg: ModelConfig, p: dict, x, cache_k, cache_v, pos,
@@ -498,20 +575,23 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
     and SSM states; ssm shift and WKV states) is updated in place and
     returned."""
     _require_ported(cfg)
+    params = _gathered(cfg, params, "top")
     x = _embed(cfg, params, tokens)
     if cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
+        shared = _gathered(cfg, params["shared"], "shared")
         for g, e, lp in _hybrid_layers(cfg, params):
             layer_state = {"conv": state["conv"][g, e], "ssm": state["ssm"][g, e]}
             out, _ = mamba2_decode_step(cfg, lp["mix"], layer_state,
                                         rms_norm(x, lp["ln"], cfg.norm_eps))
             x = x + out
             if e == every - 1:
-                x = _decode_attn_block(cfg, params["shared"], x, state["k"][g],
+                x = _decode_attn_block(cfg, shared, x, state["k"][g],
                                        state["v"][g], pos)
     elif cfg.family == "ssm":
         h = x[:, 0]
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            lp = _gathered(cfg, lp, "layer")
             layer_state = {"tm_shift": state["tm_shift"][i], "wkv": state["wkv"][i]}
             out, _, _ = rwkv6_time_mix_step(cfg, lp["tm"], layer_state,
                                             rms_norm(h, lp["ln1"], cfg.norm_eps))
@@ -522,6 +602,6 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
         x = h[:, None]
     else:
         for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x = _decode_attn_block(cfg, lp, x,
+            x = _decode_attn_block(cfg, _gathered(cfg, lp, "layer"), x,
                                    state["k"][i], state["v"][i], pos, moe_cap)
-    return last_logits(cfg, params, x[:, 0]), state
+    return _mask_vocab_pad(cfg, _head(cfg, params, x[:, 0])), state

@@ -7,8 +7,24 @@ row for the tokens over capacity, the experts run as batched products
 over every buffer row (``torch.bmm``: the reference's einsums, outside
 any Pallas kernel), and the outputs gather back weighted by the router
 gate.  DeepSeek's shared experts run beside the routed ones through
-``layers.ffn``.  The reference's sharding hints are dropped: one card
-has no mesh.
+``layers.ffn``.  The reference's sharding hints are dropped: the port's
+body runs on each rank's own tokens.
+
+What the hints leave to GSPMD is the global batch, and training over a
+data axis must keep it: the reference sizes the capacity from every
+token of the batch and ranks each (token, choice) pair in its expert's
+run over the whole batch, so a token's fate does not depend on how the
+rows were split.  Under ``dist.mesh_context(mesh, rows_split=True)``
+with a data axis of D > 1 ranks (the train step says so where
+``batch_shardings`` split the rows; where they do not, every rank holds
+the whole batch and needs nothing), a capacity-limited call (``cap``
+None: training) therefore takes one all-gather of the per-expert counts
+over the data group: the capacity is the whole batch's, each pair's
+place in its expert's run is offset by the pairs the lower ranks (the
+earlier rows) sent there, and the aux loss uses the whole batch's
+counts, so that the data axis's mean of the ranks' losses and
+gradients is the reference's.  Serving passes its drop-free ``cap`` and
+drops nothing either way.
 
 Nothing here waits for the card: no ``.item()``, no ``nonzero`` or
 boolean-mask indexing, no host data copied to the device, so a decode
@@ -22,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from ..dist.hints import current_mesh, rows_split
 from .config import ModelConfig
 from .layers import _act, ffn, ffn_param_shapes
 
@@ -79,8 +96,19 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, cap: int | None = None):
     bounds = torch.searchsorted(sorted_e, torch.arange(e + 1, device=dev, dtype=flat_e.dtype))
     pos_sorted = torch.arange(t * k, device=dev) - bounds.index_select(0, sorted_e)
     pos_in_e = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    counts = bounds[1:] - bounds[:-1]  # pairs routed to each expert
+    t_all = t
+    if cap is None and (axis := _data_axis()) is not None:
+        group, parts, me = axis
+        from ..dist.shard import all_gather_into
+
+        every = counts.new_empty((parts * e,))
+        all_gather_into(every, counts.contiguous(), group=group)
+        every = every.view(parts, e)
+        pos_in_e = pos_in_e + every[:me].sum(dim=0).index_select(0, flat_e)
+        counts, t_all = every.sum(dim=0), t * parts
     if cap is None:
-        cap = capacity(cfg, t)
+        cap = capacity(cfg, t_all)
     keep = pos_in_e < cap
     slot = torch.where(keep, pos_in_e, cap)  # overflow -> the scratch row
     rows = flat_e * (cap + 1) + slot  # row of the flattened (E * (C+1), D) buffer
@@ -110,7 +138,21 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, cap: int | None = None):
     if cfg.n_shared_experts:
         y = y + ffn(cfg, p["shared"], tokens)
 
-    # Switch-style aux loss: E * sum_e (router mass of e) * (routed share of e)
-    counts = (bounds[1:] - bounds[:-1]).float()
-    aux = e * torch.sum(gates.mean(dim=0) * counts / (t * k))
+    # Switch-style aux loss: E * sum_e (router mass of e) * (routed share of
+    # e), the share the whole batch's (a rank's mass, averaged over the
+    # data axis with the loss, is the whole batch's)
+    aux = e * torch.sum(gates.mean(dim=0) * counts.float() / (t_all * k))
     return y.view(b, s, d), aux
+
+
+def _data_axis():
+    """(group, size, this rank's index) of the active mesh's data axis
+    when it has more than one rank and the batch's rows are split over
+    it, else None."""
+    mesh = current_mesh()
+    if mesh is None or not rows_split() or "data" not in (mesh.mesh_dim_names or ()):
+        return None
+    parts = int(mesh.shape[mesh.mesh_dim_names.index("data")])
+    if parts == 1:
+        return None
+    return mesh.get_group("data"), parts, mesh.get_local_rank("data")

@@ -14,6 +14,24 @@
   admission.
 * ``ServeEngine`` — the batch API, a thin wrapper over the engine.
 
+Over a (data, model) ``mesh`` (the reference's ``mesh=``) every rank runs
+the same scheduler over all the slots: it decides from the submission
+order alone, so identical ``submit`` calls keep the ranks in lockstep.
+Rank r owns its block of slots along the data axes, as
+``dist.sharding.serve_carry_shardings`` places the carry: its decode
+state, control vectors, temperatures and generators hold those rows
+only, and its prefill and decode steps run on them alone (a rank with
+no admitted row still runs its step).  On a model axis the params are
+this rank's blocks (``init_params(..., mesh=)``), gathered where the
+model uses them.  The step's host copy becomes one all-gather over each
+mesh axis of every rank's packed block, then one copy to the host, so
+every scheduler sees every slot's token and ``serve_stats`` counts every
+slot.  The packed block carries a column with the step's fingerprint
+(its kind, number and rows); the gathers span the whole mesh, the
+model axis and an unsplit data axis too, so a rank whose fingerprint
+differs from any other's raises.  The MoE capacities stay the whole
+engine's, so the expert products keep the one-process engine's shapes.
+
 With tracing on (``repro_torch.obs.trace``), each admission records a
 ``serve.admit_group`` instant, a ``serve.prefill`` span and a
 ``serve.ttft`` instant per request, and each decode step a
@@ -30,14 +48,19 @@ differ from the JAX engine's, greedy tokens do not.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
+from ..dist.hints import mesh_context
+from ..dist.shard import all_gather_into
 from ..models.config import ModelConfig
 from ..models.model import (
     backbone,
@@ -67,20 +90,23 @@ _COUNTER_NAMES = (
 
 
 def make_prefill_step(cfg: ModelConfig, last_only: bool = True,
-                      with_state: bool = False, state_dtype=torch.bfloat16):
+                      with_state: bool = False, state_dtype=torch.bfloat16,
+                      moe_cap: int | None = None):
     """Full-sequence forward.
 
     ``last_only`` runs the LM head on the final position only.
     ``with_state`` returns ``(logits, decode_state)`` for a right-padded
     request group (``batch`` carries ``tokens`` (B, S) and ``lengths``
     (B,)): row i's logits are at its last real token and its state is
-    what token-by-token decode would hold after ``lengths[i]`` tokens."""
+    what token-by-token decode would hold after ``lengths[i]`` tokens
+    (``moe_cap``: the MoE capacity, by default the group's drop-free
+    one)."""
     if with_state:
 
         def prefill_state_step(params, batch):
             return prefill_forward(
                 cfg, params, batch["tokens"], batch["lengths"],
-                state_dtype=state_dtype,
+                state_dtype=state_dtype, moe_cap=moe_cap,
             )
 
         return prefill_state_step
@@ -139,13 +165,14 @@ class ContinuousBatchingEngine:
     ``submit`` enqueues (bounded queue — raises ``QueueFull``); ``step``
     runs one engine step: an admission bulk-prefill if slots are free and
     requests are queued, then one batched decode step for every live row.
-    ``run`` drains to idle.  ``params`` must lie on ``device``.
+    ``run`` drains to idle.  ``params`` must lie on ``device``; with
+    ``mesh`` they are this rank's blocks (see the module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, slots: int = 4,
                  max_seq: int = 512, prefill_pad: int = 64,
                  max_queue: int = 256, min_admit: int = 1,
-                 state_dtype=torch.bfloat16, device="cuda",
+                 state_dtype=torch.bfloat16, device="cuda", mesh=None,
                  clock=time.perf_counter):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -173,46 +200,126 @@ class ContinuousBatchingEngine:
         }
         _metrics.on_reset(self.reset_stats)
 
-        dev = self.device
+        # this rank's slots [lo, lo + n) (all of them off a mesh)
+        self.mesh = mesh
+        self._lo, self._n = 0, slots
+        self._on_mesh = contextlib.nullcontext
+        if mesh is not None:
+            self._place_on(mesh, params)
+        n, dev = self._n, self.device
         self._carry = {
-            "state": init_decode_state(cfg, slots, max_seq, dtype=state_dtype,
-                                       device=dev),
-            "tokens": torch.zeros((slots, 1), dtype=torch.int32, device=dev),
-            "pos": torch.zeros((slots,), dtype=torch.int64, device=dev),
-            "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
-            "gen": torch.zeros((slots,), dtype=torch.int32, device=dev),
-            "budget": torch.ones((slots,), dtype=torch.int32, device=dev),
-            "eos": torch.full((slots,), _NO_EOS, dtype=torch.int32, device=dev),
+            "state": init_decode_state(cfg, n, max_seq, dtype=state_dtype, device=dev),
+            "tokens": torch.zeros((n, 1), dtype=torch.int32, device=dev),
+            "pos": torch.zeros((n,), dtype=torch.int64, device=dev),
+            "active": torch.zeros((n,), dtype=torch.bool, device=dev),
+            "gen": torch.zeros((n,), dtype=torch.int32, device=dev),
+            "budget": torch.ones((n,), dtype=torch.int32, device=dev),
+            "eos": torch.full((n,), _NO_EOS, dtype=torch.int32, device=dev),
         }
         # sampling control stays on the host: per-slot temperature and the
-        # slot's generator (seeded from the request at admission)
-        self._temps = [0.0] * slots
-        self._gens: list[torch.Generator | None] = [None] * slots
-        self._prefill = make_prefill_step(cfg, with_state=True,
-                                          state_dtype=state_dtype)
-        # MoE: the drop-free expert capacity of a decode step.  Fixed per
-        # engine, as the prefill's b * s * top_k is for its (slots,
-        # prefill_pad) shape, so the expert products run at one shape and a
-        # row's bits do not depend on its companions
-        self._moe_cap = slots * cfg.moe_top_k if cfg.family == "moe" else None
+        # slot's generator (seeded from the request at admission), of this
+        # rank's slots
+        self._temps = [0.0] * n
+        self._gens: list[torch.Generator | None] = [None] * n
+        # MoE: the drop-free expert capacities of the admission prefill (b *
+        # s * top_k at the (slots, prefill_pad) shape) and of a decode step.
+        # Fixed per engine, and the whole engine's on a mesh, so the expert
+        # products run at one shape and a row's bits do not depend on its
+        # companions or on how the slots were split
+        moe = cfg.family == "moe"
+        self._prefill = make_prefill_step(
+            cfg, with_state=True, state_dtype=state_dtype,
+            moe_cap=slots * self.prefill_pad * cfg.moe_top_k if moe else None)
+        self._moe_cap = slots * cfg.moe_top_k if moe else None
+
+    def _place_on(self, mesh, params: dict) -> None:
+        """This rank's slots on ``mesh`` and the groups of the step's
+        gathers; the params must be its blocks."""
+        from ..dist.shard import block_of
+        from ..dist.sharding import param_shardings, serve_carry_shardings
+        from ..models.model import param_shapes
+        from ..train.optimizer import leaves
+
+        for t, shape, sh in zip(leaves(params), leaves(param_shapes(self.cfg)),
+                                leaves(param_shardings(self.cfg, mesh))):
+            want = tuple(hi - lo for lo, hi in block_of(shape, sh, mesh))
+            if tuple(t.shape) != want:
+                raise ValueError(f"a param of shape {tuple(t.shape)} is not this rank's "
+                                 f"block {want} of {tuple(shape)} on the mesh")
+        spec = serve_carry_shardings(self.cfg, mesh, self.slots, self.max_seq)["tokens"].spec
+        ((lo, hi),) = block_of((self.slots,), spec, mesh)
+        self._lo, self._n = lo, hi - lo
+        names = spec[0] if spec else ()
+        names = list(names if isinstance(names, tuple) else (names,))
+        axes = list(mesh.mesh_dim_names)
+        # every axis's group, minor first: the gathered blocks come out in
+        # the mesh's row-major order, shape (*mesh.shape, k, n + 1)
+        self._groups = [mesh.get_group(name) for name in reversed(axes)]
+        self._mesh_shape = tuple(int(n) for n in mesh.shape)
+        # the one copy of the slots: index 0 on the axes that do not split
+        # them, then their axes in the spec's (mixed radix) order
+        self._take = tuple(slice(None) if a in names else 0 for a in axes)
+        split = [a for a in axes if a in names]
+        self._order = [split.index(a) for a in names]
+        self._on_mesh = lambda: mesh_context(mesh)
+        self._tag = torch.zeros((3, 1), dtype=torch.int32, device=self.device)
+        self._stepno = 0
+
+    def _local(self, slots) -> list[int]:
+        """This rank's rows of the global ``slots``."""
+        lo, n = self._lo, self._n
+        return [s - lo for s in slots if lo <= s < lo + n]
+
+    def _pull(self, packed: torch.Tensor, rows) -> np.ndarray:
+        """The step's packed (k, local slots) int32 block as the (k, slots)
+        host array.  Off a mesh one copy to the host; on a mesh, with the
+        step's fingerprint (its number, kind and ``rows``: the admitted
+        slots with their prompt lengths, budgets and eos ids, or the
+        decoded slots) in an extra column, one all-gather over each mesh
+        axis first, and a check that every rank of the mesh took the same
+        step."""
+        if self.mesh is None:
+            return packed.cpu().numpy()  # the step's single host copy
+        self._stepno += 1
+        k = packed.shape[0]
+        fp = zlib.crc32(repr((self._stepno, k, list(rows))).encode()) & 0x7FFFFFFF
+        x = torch.cat([packed, self._tag[:k].fill_(fp)], dim=1)
+        for group in self._groups:
+            out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
+            all_gather_into(out, x.contiguous(), group=group)
+            x = out
+        host = x.cpu().numpy().reshape(*self._mesh_shape, k, self._n + 1)
+        if not (host[..., -1] == fp).all():
+            raise RuntimeError(f"serve ranks out of lockstep at step {self._stepno}: "
+                               f"fingerprints {host[..., 0, -1].ravel().tolist()}, "
+                               f"this rank's {fp}")
+        blocks = host[self._take].transpose(*self._order, -2, -1).reshape(-1, k, self._n + 1)
+        return blocks[:, :, :-1].transpose(1, 0, 2).reshape(k, -1)
 
     # -- device steps ------------------------------------------------------
 
     def _admit_step(self, slots_in: list[int], ptoks, plens, budget, eos):
-        """Bulk prefill of every row, then scatter the admitted rows into
-        the carry in place.  Returns the (2, slots) int32 host copy
-        [first token, done]."""
+        """Bulk prefill of every row (this rank's), then scatter the
+        admitted rows into the carry in place.  Returns the (2, slots)
+        int32 host copy [first token, done]."""
         c = self._carry
         dev = self.device
-        lengths = torch.from_numpy(plens).to(dev)
-        logits, pstate = self._prefill(
-            self.params, {"tokens": torch.from_numpy(ptoks).to(dev), "lengths": lengths}
-        )
-        first = _sample(logits, slots_in, self._temps, self._gens)
-        budget_t = torch.from_numpy(budget).to(dev)
-        eos_t = torch.from_numpy(eos).to(dev)
+        mine = slice(self._lo, self._lo + self._n)
+        local = self._local(slots_in)
+        lengths = torch.from_numpy(plens[mine]).to(dev)
+        with self._on_mesh():
+            logits, pstate = self._prefill(
+                self.params, {"tokens": torch.from_numpy(ptoks[mine]).to(dev),
+                              "lengths": lengths})
+        first = _sample(logits, local, self._temps, self._gens)
+        budget_t = torch.from_numpy(budget[mine]).to(dev)
+        eos_t = torch.from_numpy(eos[mine]).to(dev)
         done0 = (first == eos_t) | (budget_t <= 1)
-        idx = torch.tensor(slots_in, dtype=torch.int64, device=dev)
+        packed = torch.stack([first, done0.to(torch.int32)])
+        rows = [(s, int(plens[s]), int(budget[s]), int(eos[s])) for s in slots_in]
+        if not local:
+            return self._pull(packed, rows)
+        idx = torch.tensor(local, dtype=torch.int64, device=dev)
         for name, new in pstate.items():
             live = c["state"][name]
             bd = self._bdims[name]
@@ -226,15 +333,16 @@ class ContinuousBatchingEngine:
         c["gen"][idx] = 1
         c["budget"][idx] = budget_t[idx]
         c["eos"][idx] = eos_t[idx]
-        return torch.stack([first, done0.to(torch.int32)]).cpu().numpy()
+        return self._pull(packed, rows)
 
     def _decode_step(self, rows: list[int]):
-        """One batched decode step over every slot.  Returns the (3, slots)
-        int32 host copy [token, was active, done]."""
+        """One batched decode step over every slot (this rank's).  Returns
+        the (3, slots) int32 host copy [token, was active, done]."""
         c = self._carry
-        logits, _ = decode_step(self.cfg, self.params, c["state"], c["tokens"],
-                                c["pos"], moe_cap=self._moe_cap)
-        tok = _sample(logits, rows, self._temps, self._gens)
+        with self._on_mesh():
+            logits, _ = decode_step(self.cfg, self.params, c["state"], c["tokens"],
+                                    c["pos"], moe_cap=self._moe_cap)
+        tok = _sample(logits, self._local(rows), self._temps, self._gens)
         was = c["active"]
         gen = c["gen"] + was
         pos = c["pos"] + was
@@ -244,7 +352,7 @@ class ContinuousBatchingEngine:
         c["pos"].copy_(pos)
         c["gen"].copy_(gen)
         c["active"].copy_(was & ~done)
-        return packed.cpu().numpy()  # the step's single host copy
+        return self._pull(packed, rows)
 
     # -- host control loop -------------------------------------------------
 
@@ -286,12 +394,13 @@ class ContinuousBatchingEngine:
             plens[s] = len(req.prompt)
             budget[s] = req.max_new
             eos[s] = _NO_EOS if req.eos_id is None else req.eos_id
-            self._temps[s] = float(req.temperature)
-            gen = None
-            if req.temperature > 0.0:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(req.seed)
-            self._gens[s] = gen
+            for r in self._local([s]):  # the slot's owner samples it
+                self._temps[r] = float(req.temperature)
+                gen = None
+                if req.temperature > 0.0:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(req.seed)
+                self._gens[r] = gen
         t0 = self.clock()
         with _trace.span("serve.prefill", rows=len(plan), pad=P):
             packed = self._admit_step([s for s, _ in plan], ptoks, plens, budget, eos)

@@ -20,7 +20,9 @@ wanted window by the FALLS algebra, reading only the intersecting
 
 Leaves are torch tensors (brought to the host with ``.detach().cpu()``)
 or NumPy arrays; ``load_tree`` and ``CheckpointManager.restore`` return
-tensors on a ``device``.  bfloat16 leaves are stored as their raw uint16
+tensors on a ``device``, with ``shardings`` each rank's block alone
+(the reference's elastic restore), read from exactly the saved bytes
+that intersect it.  bfloat16 leaves are stored as their raw uint16
 bit patterns and widened bit-exactly on read, as in the reference.
 
 ``CheckpointManager`` keeps the reference's async writes (background
@@ -281,13 +283,28 @@ def reshard_read(
     return out
 
 
-def load_tree(step_dir: Path, name: str, manifest: dict, device="cuda") -> dict:
+def load_tree(step_dir: Path, name: str, manifest: dict, device="cuda",
+              shardings: dict | None = None, mesh=None) -> dict:
     """Restore a tree: each leaf assembled from its saved segments and
-    moved to ``device`` (bf16 leaves back in bf16, bit for bit)."""
+    moved to ``device`` (bf16 leaves back in bf16, bit for bit).  With
+    ``shardings`` (a tree of ``dist.sharding.Sharding`` or specs over the
+    same keys) and ``mesh`` (this rank's coordinates), each leaf it
+    places is this rank's block alone (``dist.shard.block_of``), read
+    through ``reshard_read(..., want=block)``."""
     dev = resolve_device(device)
+    flat_sh = dict(_flatten(shardings)) if shardings else {}
+    if flat_sh and mesh is None:
+        raise ValueError("restoring blocks needs the mesh that places them")
     leaves = {}
     for path, entry in manifest.items():
-        arr = np.asarray(reshard_read(step_dir, entry), order="C")
+        want = None
+        if path in flat_sh:
+            from ..dist.shard import block_of
+
+            block = block_of(entry["shape"], flat_sh[path], mesh)
+            if block != [[0, n] for n in entry["shape"]]:
+                want = block
+        arr = np.asarray(reshard_read(step_dir, entry, want), order="C")
         if _is_bf16(entry["dtype"]):  # back to the stored bits, NaNs too
             bits = (arr.view(np.uint32) >> 16).astype(np.uint16)
             t = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
@@ -407,11 +424,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(
-        self, step: int | None = None, device="cuda"
+        self, step: int | None = None, device="cuda", shardings: dict | None = None,
+        mesh=None,
     ) -> tuple[int, dict[str, dict], dict]:
         """Returns (step, trees, meta), the trees' leaves tensors on
-        ``device``.  Leaves saved by the reference's ``save_sharded`` are
-        assembled whole from their FALLS segments."""
+        ``device``.  ``shardings`` maps a tree's name to its placement
+        tree on ``mesh``: each rank then reads only its blocks (``load_tree``),
+        so a run saved on one mesh shape resumes on another.  Leaves saved
+        by the reference's ``save_sharded`` are assembled from their FALLS
+        segments."""
         dev = resolve_device(device)
         if step is None:
             step = self.latest_step()
@@ -420,7 +441,8 @@ class CheckpointManager:
         step_dir = self.dir / f"step-{step:08d}"
         with open(step_dir / "manifest.json") as f:
             manifest = json.load(f)
-        trees = {name: load_tree(step_dir, name, entries, dev)
+        trees = {name: load_tree(step_dir, name, entries, dev,
+                                 (shardings or {}).get(name), mesh)
                  for name, entries in manifest["trees"].items()}
         return step, trees, manifest.get("meta", {})
 

@@ -18,6 +18,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class AdamWConfig(NamedTuple):
@@ -84,27 +85,44 @@ def adamw_init(params: dict) -> dict:
     }
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _global_norm(grads, sharded=None, group=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares, in fp32, the leaves
     summed one after another in sorted-key order as the reference sums
-    them."""
-    total = 0
-    for g in leaves(grads):
-        total = total + g.float().square().sum()
+    them.  With ``group`` (the ``model`` axis's process group), the
+    leaves ``sharded`` marks (one bool a leaf, in ``leaves`` order) are
+    this rank's blocks: their sum is taken apart and summed over the
+    group, and the replicated leaves are counted once.  The sum then runs
+    in another order than the meshless one, so its bits may differ by an
+    ulp."""
+    total, part = 0, None
+    for i, g in enumerate(leaves(grads)):
+        sq = g.float().square().sum()
+        if group is not None and sharded[i]:
+            part = sq if part is None else part + sq
+        else:
+            total = total + sq
+    if part is not None:
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+        total = total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict):
+def adamw_update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
+                 sharded=None, group=None):
     """One AdamW step with global-norm clipping.  Returns (params, state,
     aux), aux carrying the grad norm (before clipping) and the LR applied.
 
     ``params`` and ``state["m"]``, ``state["v"]`` are updated in place and
     returned; the grads are scaled in place when they are fp32.  The
     returned state is a new dict over the same moment trees and a new
-    step tensor."""
+    step tensor.  On a ``model`` axis the leaves ``sharded`` marks are
+    this rank's blocks, and ``group`` is the axis's group: the norm is
+    the whole tree's (``_global_norm``); the update is elementwise, and
+    a block keeps its leaf's rank, so the weight decay applies as to the
+    whole leaf."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, sharded, group)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

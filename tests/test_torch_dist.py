@@ -16,7 +16,9 @@
   parameters bitwise equal across the ranks, with microbatches and with
   bf16 and int8 gradient compression.
 * Start-up: ``distributed_init`` parses both environments; NCCL without
-  a card raises; the CLI refuses a model axis and a mesh with no world.
+  a card raises; the CLI refuses a mesh with no world and a mesh that
+  does not cover the world.  (The model axis itself is held in
+  ``tests/test_torch_model_axis.py``.)
 """
 
 import os
@@ -215,13 +217,30 @@ def test_nccl_without_a_card_raises():
         di.init_process_group(spec, "tpu")
 
 
-def test_cli_refuses_a_model_axis_and_a_mesh_without_a_world():
+def test_cli_refuses_a_model_axis_and_a_mesh_without_a_world(tmp_path):
+    """The refusals left now that the model axis is ported (the name is
+    the earlier test's): a mesh, model axis or not, without a running
+    world, and a mesh that does not cover the world's ranks.  A (1, 1)
+    mesh over a world of one is taken, and no flag without a world runs
+    in one process."""
+    import torch.distributed as dist
+
     dev = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 7"):
-        cli.data_mesh((1, 2), dev)
-    with pytest.raises(RuntimeError, match="running world"):
-        cli.data_mesh((1, 1), dev)
+    for shape in ((1, 1), (1, 2), (2, 2)):
+        with pytest.raises(RuntimeError, match="running world"):
+            cli.data_mesh(shape, dev)
     assert cli.data_mesh(None, dev) is None
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        for shape in ((1, 2), (2, 1), (2, 2)):
+            with pytest.raises(ValueError, match="does not cover"):
+                cli.data_mesh(shape, dev)
+        mesh = cli.data_mesh((1, 1), dev)
+        assert dict(zip(mesh.mesh_dim_names, mesh.shape)) == {"data": 1, "model": 1}
+        assert cli.data_mesh(None, dev) is None  # a world of one runs without a mesh
+    finally:
+        dist.destroy_process_group()
 
 
 def _run_ranks(tmp_path: Path, world: int, argv: list, timeout: int = 240) -> list:
