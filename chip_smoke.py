@@ -135,6 +135,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    op's own time) beside a meshless engine's on the same params, in
    turns (mesh, meshless, meshless, mesh), so the mesh path's host cost
    reads apart; the peak above what the phase found allocated.
+21. train_lm: the twin of ``examples/train_lm.py``
+   (``examples/train_lm_torch.py``) at its spec-scale ``--size 100m``
+   (minicpm-2b's layout at d_model 768, 12 layers, vocab 32000, tied:
+   137,841,408 parameters), fp32, 60 steps of 4 x 128 with a checkpoint
+   every 20: the loss at steps 0 and 59 (falling), step p50 over steps 2
+   onward beside the step's bound, tokens/s, peak memory, what was
+   allocated at the start, one profiled step, the launch counters unmoved;
+   then a copy cut back to its step-40 checkpoint resumed with
+   ``--resume``, its losses within 1e-5 of the uninterrupted run's and its
+   final trees beside the uninterrupted ones.
+22. ckpt_reshard: that run's final train state (params, m and v, 1.65 GB
+   in fp32, and a bf16 copy of the params) restored on the card and
+   brought to the host, each leaf a ``Dmat`` over a [2, 1...] block map
+   saved with ``save_sharded`` on a 2-rank ``run_spmd`` world, then
+   restored with ``restore_resharded`` on 4 ranks (cyclic on dim 0) and 3
+   (block), each ``direct`` and ``redist``: ``agg`` on rank 0 bitwise the
+   card's tensors (the bf16 copy widened), the ``ckpt.peak_buffer_bytes``
+   gauge within the largest owned part, ``elastic_resume_step`` reading
+   60; the seconds of the save and each restore (host I/O and copies),
+   the files opened and bytes read.
+23. serve_lm: the twin of ``examples/serve_lm.py``
+   (``examples/serve_lm_torch.py``) at its defaults on the card (reduced
+   gemma-2b, fp32, 2 slots, two requests arriving mid-decode): every
+   request's 16 tokens, the fp32 rmsnorm and flash launches (counters
+   zeroed just before, read just after), beside the same twin on the CPU.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -146,19 +171,23 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import re
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-SRC = Path(__file__).resolve().parent / "src"
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
 
 # The card's published peaks (H100 SXM data sheet, dense): the bounds below
 HBM_BYTES_PER_S = 3.35e12
@@ -212,13 +241,14 @@ KERNELS = {
         "source": "src/repro_torch/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:27",
         "time_row": "prefill",
-        "paths": ("serve", "serve_hybrid", "serve_moe", "serve_ssm", "serve_mesh"),
+        "paths": ("serve", "serve_hybrid", "serve_moe", "serve_ssm", "serve_mesh", "serve_lm"),
     },
     "flash_attention": {
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:91",
-        "time_row": "prefill", "paths": ("serve", "serve_hybrid", "serve_moe", "serve_mesh"),
+        "time_row": "prefill",
+        "paths": ("serve", "serve_hybrid", "serve_moe", "serve_mesh", "serve_lm"),
     },
     "ssd_scan": {
         "route": "cuda",
@@ -419,6 +449,7 @@ def phase_check() -> dict:
     rows_gen = torch.Generator(device="cuda").manual_seed(5)
     moe_gen = torch.Generator(device="cuda").manual_seed(6)
     cap_gen = torch.Generator(device="cuda").manual_seed(8)
+    lm_gen = torch.Generator(device="cuda").manual_seed(9)  # serve_lm's shapes
     # main shapes, bf16; the triad at 2^20 fp32
     errs = {"rmsnorm": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0, "stream_triad": 0.0}
     rows = []
@@ -436,6 +467,12 @@ def phase_check() -> dict:
             w = torch.randn(d, generator=rows_gen, device="cuda") * 0.2
             err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), tol)
             rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype), "max_abs_err": err})
+        for m, d in SERVE_LM_RMS if dtype == torch.float32 else ():
+            x = torch.randn(m, d, generator=lm_gen, device="cuda")
+            w = torch.randn(d, generator=lm_gen, device="cuda") * 0.2
+            err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), tol)
+            rows.append({"kernel": "rmsnorm", "shape": [m, d], "dtype": str(dtype),
+                         "path": "serve_lm", "max_abs_err": err})
         for d in RMS_WIDTHS:
             rows.append({"kernel": "rmsnorm", "shape": [512, d], "dtype": str(dtype),
                          **rms_rows_alone(rn, rows_gen, d, dtype)})
@@ -451,9 +488,11 @@ def phase_check() -> dict:
                 if dtype == torch.bfloat16 else ())
         for b, s, h, kh, d in ((4, 128, 8, 1, 256), (4, 100, 8, 1, 256), (2, 200, 8, 2, 128),
                                FLASH80_SHAPE, (2, 100, 4, 2, 80), *long,
-                               FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE):
+                               FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE,
+                               *(SERVE_LM_FLASH if dtype == torch.float32 else ())):
             g = (long_gen if s > 1000 else
-                 moe_gen if (b, s, h, kh, d) in (FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE) else gen)
+                 moe_gen if (b, s, h, kh, d) in (FLASH_MOE_SHAPE, FLASH_QWEN3_SHAPE) else
+                 lm_gen if (b, s, h, kh, d) in SERVE_LM_FLASH else gen)
             q, k, v = (torch.randn(b, s, n, d, generator=g, device="cuda").to(dtype)
                        for n in (h, kh, kh))
             err = max_err(fa.flash_attention(q, k, v), fa.attention_plain(q, k, v), tol)
@@ -522,6 +561,13 @@ def phase_check() -> dict:
                           "eps": {str(k): v for k, v in TRIAD_EPS.items()}}, cases=rows)
     return errs
 
+
+# serve_lm's shapes (reduced gemma-2b in fp32: d_model 64, 4 query heads
+# and 1 KV head of 16): rmsnorm's rows at a prefill of 2 slots x 16 and
+# at a decode step; flash at the prefill, and at 9 rows, less than one
+# tile of queries and keys
+SERVE_LM_RMS = ((32, 64), (2, 64))
+SERVE_LM_FLASH = ((2, 16, 4, 1, 16), (2, 9, 4, 1, 16))
 
 # rmsnorm's widths in the serve paths (gemma-2b's d_model, zamba2-2.7b's
 # d_model and d_inner) and 100: in bf16 not a multiple of 16 bytes (the
@@ -1690,6 +1736,243 @@ def phase_dist(card: dict, train: dict, serve: dict, spec, backend: str, steps: 
     return out
 
 
+def _example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` is not run)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TRAIN_LM_ARGV = ["--size", "100m", "--steps", "60", "--batch", "4", "--seq", "128",
+                 "--ckpt-every", "20", "--device", "cuda"]
+TRAIN_LM_PARAMS = 137_841_408
+
+
+def phase_train_lm(card: dict, tmp: Path) -> dict:
+    """The twin of ``examples/train_lm.py`` (``examples/train_lm_torch.py``)
+    at its spec-scale ``--size 100m`` on the card: 60 steps of 4 x 128 with
+    a checkpoint every 20 (retention keeps steps 40 and 60).  The loss
+    must fall and no kernel may launch (training runs the plain
+    versions); one more step, profiled, gives the device's busy and idle
+    share.  Then a copy of the checkpoints cut back to step 40 is
+    resumed with ``--resume``: its losses at steps 40-59 against the
+    uninterrupted run's, and its final trees beside the uninterrupted
+    ones."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import leaves
+
+    twin = _example("train_lm_torch")
+    args = twin.parse_args(TRAIN_LM_ARGV)
+    steps, cut_at = args.steps, args.steps - args.ckpt_every
+    run_dir, cut = tmp / "run", tmp / "cut"
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    params, opt_state, hist = twin.run(twin.parse_args(TRAIN_LM_ARGV +
+                                                       ["--ckpt-dir", str(run_dir)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in leaves(params))
+    cfg = twin.build_config(args.size)
+    bound = train_bound(cfg, params, args.batch, args.seq)
+    # one more step under the profiler, after the run's last checkpoint
+    profile = _profile_train(cfg, *twin.step_configs(cfg, args), params, opt_state,
+                             args.batch, args.seq, steps)
+    del params, opt_state
+    if n != TRAIN_LM_PARAMS:
+        raise AssertionError(f"{args.size} has {n} parameters")
+    losses = [h["loss"] for h in hist]
+    if (len(losses) != steps or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}: not {steps} finite and falling")
+    if CheckpointManager(run_dir).list_steps() != [cut_at, steps]:
+        raise AssertionError(f"checkpoints {CheckpointManager(run_dir).list_steps()}")
+    shutil.copytree(run_dir, cut)
+    shutil.rmtree(cut / f"step-{steps:08d}")
+    _, _, again = twin.run(twin.parse_args(TRAIN_LM_ARGV + ["--ckpt-dir", str(cut),
+                                                            "--resume"]))
+    resumed = {h["step"]: h["loss"] for h in again}
+    if sorted(resumed) != list(range(cut_at, steps)):
+        raise AssertionError(f"resumed steps {sorted(resumed)}")
+    rel = max(abs(resumed[s] - losses[s]) / abs(losses[s]) for s in resumed)
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"resumed losses {resumed} vs {losses[cut_at:]}")
+    _, want, _ = CheckpointManager(run_dir).restore(steps, device="cpu")
+    _, got, _ = CheckpointManager(cut).restore(steps, device="cpu")
+    after = _launch_counts()
+    if after != before:
+        raise AssertionError(f"training launched kernels: {before} -> {after}")
+    step_ms = [h["seconds"] * 1e3 for h in hist]
+    p50 = float(np.median(step_ms[1:]))  # steps 2 onward: the first pays for warm-up
+    out = {"card": card["nvidia_smi"], "entry_point": "examples/train_lm_torch.py",
+           "argv": TRAIN_LM_ARGV, "model": cfg.name, "params": n,
+           "dtype": "float32", "loss_0": losses[0], f"loss_{steps - 1}": losses[-1],
+           "loss": losses, "step_ms": step_ms, f"step_ms_p50_2_to_{steps}": p50,
+           "tokens_per_s": args.batch * args.seq / (p50 * 1e-3), "wall_s": wall,
+           "bound": bound, "bound_share": bound["bound_ms"] / p50,
+           "max_memory_allocated_gib": peak / 2**30, "allocated_at_start_gib": held / 2**30,
+           "profile": profile, "resumed_from": cut_at, "resumed_losses": [resumed[s] for s in sorted(resumed)],
+           "loss_rtol": RESUME_RTOL, "loss_max_rel_err": rel,
+           "final_bitwise_equal": _bitwise_equal(got, want),
+           "launches_before": before, "launches_after": after}
+    emit("train_lm", **out)
+    return out
+
+
+def phase_ckpt_reshard(card: dict, run_dir: Path, tmp: Path) -> dict:
+    """The ``train_lm`` phase's final train state (params, m, v in fp32,
+    and a bf16 copy of the params) taken through the checkpoint's ``Dmat``
+    paths: restored on the card and brought to the host, each leaf a
+    ``Dmat`` over a [2, 1...] block map on a 2-rank ``run_spmd`` world
+    saved with ``save_sharded``, then restored with ``restore_resharded``
+    on 4 ranks under a cyclic map on dim 0 and on 3 ranks under a block
+    map, each ``direct`` and ``redist``.  ``agg`` on rank 0 must equal
+    the card's tensors bit for bit (the bf16 copy widened), no restore
+    buffer may exceed the largest part a rank owns, and
+    ``elastic_resume_step`` on the 4-rank world must read 60.  The
+    seconds are host I/O and copies on the card's machine."""
+    import ml_dtypes
+
+    from repro_torch.comm import get_context, run_spmd
+    from repro_torch.core import Dmap, Dmat, agg
+    from repro_torch.obs import metrics
+    from repro_torch.train.checkpoint import CheckpointManager, _flatten, elastic_resume_step
+
+    mgr = CheckpointManager(run_dir)
+    step, trees, _ = mgr.restore(mgr.latest_step(), device="cuda")
+    on_card = {f"params.{k}": v for k, v in _flatten(trees["params"])}
+    on_card.update({f"opt_state.{k}": v for k, v in _flatten(trees["opt_state"])
+                    if k != "step"})
+    bf16 = {f"params_bf16.{k}": v.to(torch.bfloat16) for k, v in _flatten(trees["params"])}
+    want = {**on_card, **{k: v.float() for k, v in bf16.items()}}
+    host = {k: v.cpu().numpy() for k, v in on_card.items()}
+    host.update({k: v.view(torch.int16).cpu().numpy().view(ml_dtypes.bfloat16)
+                 for k, v in bf16.items()})
+    state_bytes = sum(v.nbytes for k, v in host.items() if not k.startswith("params_bf16."))
+
+    def grid(np_, nd, dist=None):
+        return Dmap([np_] + [1] * (nd - 1), dist, range(np_))
+
+    def save():
+        ctx = get_context()
+        leaves = {}
+        for path, arr in host.items():
+            x = Dmat(arr.shape, grid(ctx.np_, arr.ndim), dtype=arr.dtype, ctx=ctx)
+            x.local_view_owned()[...] = arr[x.owned_indices(0)]
+            leaves[path] = x
+        tree = {}
+        for path, x in leaves.items():
+            name, rest = path.split(".", 1)
+            tree.setdefault(name, {})[rest] = x
+        tree["opt_state"]["step"] = trees["opt_state"]["step"]
+        t0 = time.perf_counter()
+        CheckpointManager(tmp / "sharded").save_sharded(step, tree, ctx)
+        return time.perf_counter() - t0
+
+    save_s = max(run_spmd(save, 2))
+    # restored leaves are fp32 (bf16 widens); a rank of the saved [2, 1...]
+    # map owns ceil(rows / 2) rows of a leaf
+    src_part = max(-(-a.shape[0] // 2) * (a.size // a.shape[0]) * 4 for a in host.values())
+    largest_leaf = max(a.size * 4 for a in host.values())
+    peak, files, read = (metrics.gauge("ckpt.peak_buffer_bytes"),
+                         metrics.counter("ckpt.files_opened"), metrics.counter("ckpt.read_bytes"))
+
+    def restore(np_, dist, via):
+        def body():
+            ctx = get_context()
+            mgr = CheckpointManager(tmp / "sharded")
+            resume = elastic_resume_step(mgr, ctx)
+            t0 = time.perf_counter()
+            _, got, _ = mgr.restore_resharded(
+                resume, ctx, lambda tree, path, entry: grid(ctx.np_, len(entry["shape"]), dist),
+                via=via, device="cuda")
+            secs = time.perf_counter() - t0
+            flat = {f"{name}.{k}": v for name, t in got.items() for k, v in _flatten(t)}
+            owned = max(x.local.nbytes for k, x in flat.items() if k != "opt_state.step")
+            equal = True
+            for k in want:
+                full = agg(flat[k], root=0)
+                if ctx.pid == 0:
+                    equal &= torch.equal(torch.from_numpy(full).to("cuda"), want[k])
+                del full
+            if ctx.pid == 0:
+                equal &= int(flat["opt_state.step"]) == step
+            return resume, secs, owned, equal
+
+        peak.set(0)
+        f0, b0 = files.value, read.value
+        res = run_spmd(body, np_)
+        resume = {r[0] for r in res}
+        dst_part = max(r[2] for r in res)
+        bound = max(dst_part, src_part) if via == "redist" else dst_part
+        row = {"np": np_, "map": f"{dist or 'b'} on dim 0", "via": via,
+               "seconds": max(r[1] for r in res), "files_opened": files.value - f0,
+               "read_bytes": read.value - b0, "peak_buffer_bytes": peak.value,
+               "largest_owned_part_bytes": dst_part, "resume_step": sorted(resume),
+               "bitwise_equal": res[0][3]}
+        if not res[0][3]:
+            raise AssertionError(f"restore {row}: differs from the card's tensors")
+        if resume != {step}:
+            raise AssertionError(f"elastic_resume_step read {resume}")
+        if not 0 < peak.value <= bound or not peak.value < largest_leaf:
+            raise AssertionError(f"restore {row}: a buffer beyond the owned part ({bound})")
+        return row
+
+    rows = [restore(4, "c", "direct"), restore(4, "c", "redist"),
+            restore(3, None, "direct"), restore(3, None, "redist")]
+    out = {"card": card["nvidia_smi"], "from": str(run_dir.name), "step": step,
+           "leaves": len(host), "state_bytes": state_bytes,
+           "bf16_params_bytes": sum(v.nbytes for k, v in host.items()
+                                    if k.startswith("params_bf16.")),
+           "save": {"np": 2, "map": "b on dim 0", "seconds": save_s},
+           "restores": rows, "note": "host I/O and copies on the card's machine"}
+    emit("ckpt_reshard", **out)
+    return out
+
+
+def phase_serve_lm(card: dict) -> dict:
+    """The twin of ``examples/serve_lm.py`` (``examples/serve_lm_torch.py``)
+    at its defaults on the card: reduced gemma-2b in fp32, 2 slots, two
+    early and two late requests.  Every request gets its tokens, and the
+    launch counters, zeroed just before and read just after, show the
+    fp32 rmsnorm and flash kernels on the path; the same twin on the CPU
+    (plain versions, the same weights) must give every request the same
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    twin = _example("serve_lm_torch")
+    args = twin.parse_args(["--device", "cuda"])
+    cfg = get_config(args.arch).reduced()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    reqs, stats = twin.run(cfg, params, args)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    want = expected_launches(cfg, stats["prefill_steps"], stats["decode_steps"])
+    if launches != want or not (launches["rmsnorm"] and launches["flash_attention"]):
+        raise AssertionError(f"launches {launches}, want {want} for steps {stats}")
+    for r in reqs:
+        if len(r.tokens) != args.max_new:
+            raise AssertionError(f"request {r.rid}: {len(r.tokens)} tokens")
+    cpu_reqs, _ = twin.run(cfg, _to_cpu(params), twin.parse_args(["--device", "cpu"]))
+    tokens, cpu_tokens = [r.tokens for r in reqs], [r.tokens for r in cpu_reqs]
+    if tokens != cpu_tokens:
+        raise AssertionError(f"tokens {tokens} on the card, {cpu_tokens} on the CPU")
+    out = {"card": card["nvidia_smi"], "entry_point": "examples/serve_lm_torch.py",
+           "model": cfg.name, "dtype": "float32", "launches": launches,
+           "request_tokens": tokens, "cpu_request_tokens": cpu_tokens,
+           "requests_equal_to_cpu": sum(a == b for a, b in zip(tokens, cpu_tokens)),
+           "tokens_generated": stats["tokens_generated"],
+           "tpot_p50_ms": stats["tpot_p50_ms"], "ttft_p50_ms": stats["ttft_p50_ms"]}
+    emit("serve_lm", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1733,6 +2016,10 @@ def main() -> int:
 
         paths["serve_mesh"] = phase_serve(card, "gemma-2b", "serve_mesh",
                                           mesh=make_local_mesh(1, 1), reference=paths["serve"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as tmp:
+        phase_train_lm(card, Path(tmp))
+        phase_ckpt_reshard(card, Path(tmp) / "run", Path(tmp))
+    paths["serve_lm"] = phase_serve_lm(card)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -1,18 +1,19 @@
-"""The part of pPython's core the port needs: the map construct and the
-PITFALLS index algebra, for the checkpoint's segment reads and the torch
-bridge.
+"""The part of pPython's core the port needs: the map construct, the
+distributed array and the PITFALLS index algebra, for the checkpoint's
+segment reads and ``Dmat`` paths and for the torch bridge.
 
-``dmap``, ``pitfalls`` and ``redist`` are the port's own copies of
-``repro.core``'s modules; ``torch_bridge`` lowers a ``Dmap`` onto a
-``torch.distributed`` mesh (the port of ``repro.core.jax_bridge``).
-``Dmat`` and the parallel support functions (``repro.core.dmat``,
-``repro.core.ops``) are not ported: they need the communication layer
-(``repro.comm``), which waits for the ``Dmat`` checkpoint paths.
+``dmap``, ``pitfalls``, ``redist``, ``dmat`` and ``ops`` are the port's
+own copies of ``repro.core``'s modules (NumPy only; ``Dmat`` runs over
+the port's copy of the communication layer, ``repro_torch.comm``);
+``torch_bridge`` lowers a ``Dmap`` onto a ``torch.distributed`` mesh
+(the port of ``repro.core.jax_bridge``).
 """
 
 from .dmap import Dmap
+from .dmat import Dmat, redistribute
+from .ops import agg
 from .pitfalls import FALLS
 from .redist import as_basic_index, owned_segment_positions, segment_intersection
 
-__all__ = ["Dmap", "FALLS", "as_basic_index", "owned_segment_positions",
-           "segment_intersection"]
+__all__ = ["Dmap", "Dmat", "FALLS", "agg", "as_basic_index", "owned_segment_positions",
+           "redistribute", "segment_intersection"]

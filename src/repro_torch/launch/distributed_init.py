@@ -34,7 +34,7 @@ import sys
 from dataclasses import dataclass
 from datetime import timedelta
 
-__all__ = ["WorldSpec", "world_from_env", "init_process_group", "main"]
+__all__ = ["WorldSpec", "world_from_env", "init_process_group", "leave_world", "main"]
 
 
 @dataclass(frozen=True)
@@ -118,14 +118,38 @@ def main(argv: list[str]) -> int:
         if not dist.is_initialized():
             init_process_group(spec, args.device)
             started = True
+    ok = False
     try:
         run_target(args.target, args.args)
+        ok = True
     finally:
         if started:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
+            leave_world(ok)
     return 0
+
+
+def leave_world(ok: bool = True) -> None:
+    """Tear the world down before the interpreter does.
+
+    Every rank that ran its target to the end first meets the others at
+    a barrier, so no rank closes its connections while a peer's last
+    collective still uses them.  Then the groups are destroyed, and the
+    ones the target's objects held (a ``DeviceMesh`` keeps its groups in
+    reference cycles) are collected now: each gloo group's destructor
+    joins its worker threads.  Left to the interpreter's exit, a worker
+    thread that still held its last collective's tensors would take the
+    GIL to release them while the interpreter finalizes, and CPython ends
+    such a thread with ``pthread_exit``, whose unwinding through C++
+    aborts the process (``terminate called without an active
+    exception``)."""
+    import gc
+
+    import torch.distributed as dist
+
+    if ok:
+        dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
 
 
 if __name__ == "__main__":

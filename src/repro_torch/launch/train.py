@@ -212,9 +212,11 @@ def configs(args: argparse.Namespace):
     return cfg, opt, ts
 
 
-def run(args: argparse.Namespace):
-    """The CLI's run: (params, opt_state, history) of this rank."""
-    cfg, opt, ts = configs(args)
+def run(args: argparse.Namespace, setup=None):
+    """The CLI's run: (params, opt_state, history) of this rank.
+    ``setup`` is the (model config, AdamWConfig, TrainStepConfig) to
+    train, in place of the flags' (``configs(args)``)."""
+    cfg, opt, ts = setup or configs(args)
     dev = resolve_device(args.device)
     mesh = data_mesh(args.data_model, dev)
     if _rank0(mesh):

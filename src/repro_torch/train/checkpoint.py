@@ -28,11 +28,23 @@ bit patterns and widened bit-exactly on read, as in the reference.
 ``CheckpointManager`` keeps the reference's async writes (background
 thread, on a host snapshot taken before ``save`` returns: the training
 step updates its tensors in place), retention, restart discovery with
-its integrity check, and the fsync chain of the atomic publish.  The
-reference's ``Dmat`` paths need ``core.dmat`` and the communication
-layer, which the port does not have yet: ``save_tree_sharded``,
-``CheckpointManager.save_sharded``, ``restore_resharded`` and
-``elastic_resume_step`` raise ``NotImplementedError``.
+its integrity check, and the fsync chain of the atomic publish.
+
+The ``Dmat`` paths run over the port's copy of the PGAS core
+(``repro_torch.core.dmat``, ``repro_torch.comm``), with the reference's
+algorithm and names.  ``CheckpointManager.save_sharded`` is the
+collective save: every mapped rank writes its owned part of each
+``Dmat`` leaf as one ``__r<pid>.npy`` file whose segment carries the
+per-dim FALLS and the leaf's ``Dmap``; rank 0 writes the replicated
+leaves, merges the gathered partial manifests and publishes.
+``restore_resharded`` lands such a checkpoint under another processor
+grid: each rank mmap-reads its owned FALLS intersection of the saved
+segments (``direct``), or the saved map's ranks read their own shards
+and one ``RedistPlan`` redistribution moves the rest (``redist``); no
+rank allocates a global array (the ``ckpt.peak_buffer_bytes`` gauge).
+``Dmat`` leaves come back as ``Dmat``s whose local parts are host NumPy,
+as in the reference; replicated leaves as tensors on ``device``.
+``elastic_resume_step`` is the step a relaunched world agrees on.
 """
 
 from __future__ import annotations
@@ -49,15 +61,19 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..core.dmap import Dmap
+from ..core.dmat import Dmat
 from ..core.pitfalls import FALLS
-from ..core.redist import as_basic_index, segment_intersection
+from ..core.redist import (
+    as_basic_index,
+    owned_segment_positions,
+    redistribute,
+    segment_intersection,
+)
 from ..obs import metrics as _metrics
 
 __all__ = ["CheckpointManager", "elastic_resume_step", "load_tree",
            "reshard_read", "restore_resharded", "save_tree"]
-
-_NOT_PORTED = ("the Dmat checkpoint paths need repro_torch.core.dmat and a "
-               "communication layer, not ported yet (ROADMAP.md Queue 1 item 7)")
 
 # restore-side observability: the largest buffer any reader allocated
 # (the no-global-array assertion in benchmarks/ckpt_bench.py), plus
@@ -152,6 +168,10 @@ def _open_shard(path: Path, bf16: bool) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _falls_encode(fs: list[FALLS]) -> list[list[int]]:
+    return [[int(f.l), int(f.r), int(f.s), int(f.n)] for f in fs]
+
+
 def _segment_falls(seg: dict) -> list[list[FALLS]]:
     """A segment's per-dim global index set, whichever encoding it uses:
     ``"falls"`` (general, written by save_sharded) or the legacy
@@ -214,27 +234,61 @@ def _write_shard(step_dir: Path, fn: str, data: np.ndarray, bf16: bool) -> int:
     return (step_dir / fn).stat().st_size
 
 
+def _save_leaf(step_dir: Path, name: str, path: str, leaf) -> dict:
+    """Write a whole leaf as one segment; returns its manifest entry."""
+    arr, arr_dtype = _host(leaf)
+    fn = f"{name}__{path}__s0.npy"
+    nbytes = _write_shard(step_dir, fn, arr, _is_bf16(arr_dtype))
+    return {
+        "shape": [int(s) for s in arr.shape],
+        "dtype": arr_dtype,
+        "segments": [{"file": fn, "index": [[0, s] for s in arr.shape],
+                      "nbytes": nbytes}],
+    }
+
+
 def save_tree(step_dir: Path, name: str, tree: dict) -> dict:
     """Write every leaf (one segment each); returns this tree's manifest
     entry."""
-    entries = {}
-    for path, leaf in _flatten(tree):
-        arr, arr_dtype = _host(leaf)
-        fn = f"{name}__{path}__s0.npy"
-        nbytes = _write_shard(step_dir, fn, arr, _is_bf16(arr_dtype))
-        entries[path] = {
-            "shape": [int(s) for s in arr.shape],
-            "dtype": arr_dtype,
-            "segments": [{"file": fn, "index": [[0, s] for s in arr.shape],
-                          "nbytes": nbytes}],
-        }
-    return entries
+    return {path: _save_leaf(step_dir, name, path, leaf) for path, leaf in _flatten(tree)}
 
 
 def save_tree_sharded(step_dir: Path, name: str, tree: dict, pid: int) -> dict:
-    """The reference's per-rank part of a collective sharded save of
-    ``Dmat`` leaves: not ported."""
-    raise NotImplementedError(_NOT_PORTED)
+    """This rank's contribution to one tree of a collective sharded save.
+
+    ``Dmat`` leaves: every mapped rank writes its owned local part (halo
+    stripped) as one ``__r<pid>.npy`` file whose manifest segment carries
+    the per-dim FALLS index set and the leaf's ``Dmap``.  Other leaves
+    (tensors or arrays) are treated as replicated and written by rank 0
+    as one segment.  Returns partial entries merged by rank 0 in
+    ``save_sharded``."""
+    entries: dict[str, dict] = {}
+    for path, leaf in _flatten(tree):
+        if isinstance(leaf, Dmat):
+            dtype_str = str(leaf.dtype)
+            entry = {
+                "shape": [int(s) for s in leaf.shape],
+                "dtype": dtype_str,
+                "dmap": leaf.dmap.to_json(),
+                "segments": [],
+            }
+            if leaf.dmap.inmap(pid):
+                falls = [leaf.dmap.dim_falls(leaf.shape, d, pid) for d in range(leaf.ndim)]
+                if all(falls):  # owns cells along every dim
+                    fn = f"{name}__{path}__r{pid}.npy"
+                    nbytes = _write_shard(step_dir, fn,
+                                          np.ascontiguousarray(leaf.local_view_owned()),
+                                          _is_bf16(dtype_str))
+                    entry["segments"].append({
+                        "file": fn,
+                        "falls": [_falls_encode(fs) for fs in falls],
+                        "nbytes": nbytes,
+                        "saver": pid,
+                    })
+            entries[path] = entry
+        elif pid == 0:
+            entries[path] = _save_leaf(step_dir, name, path, leaf)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +337,33 @@ def reshard_read(
     return out
 
 
+def _fill_owned_from_disk(step_dir: Path, entry: dict, dmap: Dmap, shape: tuple, pid: int,
+                          loc: np.ndarray) -> None:
+    """Fill ``pid``'s owned local storage with its intersection of every
+    saved segment — the mmap fast path of resharding restore."""
+    bf16 = _is_bf16(entry["dtype"])
+    for seg in entry["segments"]:
+        hit = owned_segment_positions(dmap, shape, pid, _segment_falls(seg))
+        if hit is None:
+            continue
+        local_pos, file_pos = hit
+        loc[as_basic_index(local_pos)] = _read_segment_positions(step_dir, seg, file_pos, bf16)
+
+
+def _as_tensor(arr: np.ndarray, dtype_str: str, dev: torch.device) -> torch.Tensor:
+    """A read leaf as a tensor on ``dev``: bf16 entries (read widened to
+    float32) back to their stored bits, NaNs too."""
+    arr = np.asarray(arr, order="C")
+    if not arr.flags.writeable:  # a ThreadComm broadcast's frozen buffer
+        arr = arr.copy()
+    if _is_bf16(dtype_str):
+        bits = (arr.view(np.uint32) >> 16).astype(np.uint16)
+        t = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(dev)
+
+
 def load_tree(step_dir: Path, name: str, manifest: dict, device="cuda",
               shardings: dict | None = None, mesh=None) -> dict:
     """Restore a tree: each leaf assembled from its saved segments and
@@ -304,14 +385,32 @@ def load_tree(step_dir: Path, name: str, manifest: dict, device="cuda",
             block = block_of(entry["shape"], flat_sh[path], mesh)
             if block != [[0, n] for n in entry["shape"]]:
                 want = block
-        arr = np.asarray(reshard_read(step_dir, entry, want), order="C")
-        if _is_bf16(entry["dtype"]):  # back to the stored bits, NaNs too
-            bits = (arr.view(np.uint32) >> 16).astype(np.uint16)
-            t = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        leaves[path] = t.to(dev)
+        leaves[path] = _as_tensor(reshard_read(step_dir, entry, want), entry["dtype"], dev)
     return _unflatten(leaves)
+
+
+def _resolve_dst_map(dst_map, name: str, path: str, entry: dict, np_: int):
+    """Which Dmap a leaf restores under (None -> replicated).
+
+    ``dst_map`` may be a single :class:`Dmap` (applied to every leaf of
+    matching rank), a dict keyed ``"tree.leaf.path"`` / ``"tree"`` /
+    ``"*"``, or a callable ``(tree, path, entry) -> Dmap | None``.  A
+    leaf no rule covers falls back to its *saved* map when that map fits
+    the live world, else replicates."""
+    m = None
+    if callable(dst_map) and not isinstance(dst_map, Dmap):
+        m = dst_map(name, path, entry)
+    elif isinstance(dst_map, dict):
+        m = dst_map.get(f"{name}.{path}", dst_map.get(name, dst_map.get("*")))
+    elif isinstance(dst_map, Dmap):
+        m = dst_map
+    if m is not None and m.ndim != len(entry["shape"]):
+        m = None
+    if m is None and "dmap" in entry:
+        saved = Dmap.from_json(entry["dmap"])
+        if max(saved.proclist) < np_:
+            m = saved
+    return m
 
 
 class CheckpointManager:
@@ -373,8 +472,47 @@ class CheckpointManager:
 
     def save_sharded(self, step: int, trees: dict[str, dict], ctx=None,
                      extra_meta: dict | None = None) -> None:
-        """The reference's collective sharded save: not ported."""
-        raise NotImplementedError(_NOT_PORTED)
+        """Collective parallel sharded save (all ranks, same ``self.dir``).
+
+        Every mapped rank writes its own ``Dmat`` shards concurrently
+        (one ``__r<pid>.npy`` per leaf, fsynced), partial manifest
+        entries are gathered to rank 0, and rank 0 alone publishes the
+        merged manifest with the same rename/fsync durability chain as
+        :meth:`save`.  Other leaves are taken as replicated and written
+        by rank 0.  The manifest records each leaf's ``Dmap``, which is
+        what lets :meth:`restore_resharded` land the bytes under a
+        different grid."""
+        pid = 0 if ctx is None else ctx.pid
+        tmp = self.dir / f"step-{step:08d}.tmp"
+        final = self.dir / f"step-{step:08d}"
+        if pid == 0:
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            tmp.mkdir(parents=True)
+        if ctx is not None:
+            ctx.barrier(tag=("__ckpt_mkdir", step))
+        local = {name: save_tree_sharded(tmp, name, tree, pid) for name, tree in trees.items()}
+        parts = [local] if ctx is None else ctx.gather(0, local, tag=("__ckpt_manifest", step))
+        if pid == 0:
+            manifest = {"step": step, "time": time.time(), "format": 2, "trees": {}}
+            if extra_meta:
+                manifest["meta"] = extra_meta
+            for part in parts:
+                for name, entries in part.items():
+                    tree_m = manifest["trees"].setdefault(name, {})
+                    for path, e in entries.items():
+                        got = tree_m.get(path)
+                        if got is None:
+                            tree_m[path] = dict(e)
+                        else:
+                            got["segments"] = got["segments"] + e["segments"]
+            for entries in manifest["trees"].values():
+                for e in entries.values():
+                    e["segments"].sort(key=lambda s: s.get("saver", -1))
+            self._publish(tmp, final, manifest)
+            self._gc()
+        if ctx is not None:
+            ctx.barrier(tag=("__ckpt_publish", step))
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -447,20 +585,141 @@ class CheckpointManager:
         return step, trees, manifest.get("meta", {})
 
     def restore_resharded(self, step: int | None = None, ctx=None, dst_map=None, *,
-                          via: str = "auto"):
-        """The reference's restore under another processor grid: not
-        ported."""
-        raise NotImplementedError(_NOT_PORTED)
+                          via: str = "auto", device="cuda") -> tuple[int, dict[str, dict], dict]:
+        """Restore under a (possibly different) grid: (step, trees, meta).
+
+        Distributed leaves come back as ``Dmat``s (host NumPy local parts)
+        under the map ``dst_map`` resolves for them (see
+        :func:`_resolve_dst_map`); uncovered leaves restore replicated, as
+        tensors on ``device``.  Two collectively-agreed data paths:
+
+        * ``direct`` — every rank mmap-reads exactly its owned FALLS
+          intersection of the saved segments (parallel, zero messages;
+          needs every rank to see every intersecting shard file).
+        * ``redist`` — ranks of the *saved* map read only their own
+          shards, then one ``RedistPlan`` redistribution over the live
+          transport moves the residual (restore roots that are not a
+          shared filesystem, or any time direct reads are impossible).
+
+        ``via='auto'`` (default) allgathers per-rank file visibility and
+        picks ``direct`` only when unanimous.  No rank ever materializes
+        a global array; the peak reader allocation is tracked in the
+        ``ckpt.peak_buffer_bytes`` gauge."""
+        dev = resolve_device(device)
+        pid = 0 if ctx is None else ctx.pid
+        np_ = 1 if ctx is None else ctx.np_
+        if pid == 0:
+            if step is None:
+                step = self.latest_step()
+            manifest = None
+            if step is not None:
+                try:
+                    with open(self.dir / f"step-{step:08d}" / "manifest.json") as f:
+                        manifest = json.load(f)
+                except OSError:
+                    manifest = None
+            payload = (step, manifest)
+        else:
+            payload = None
+        if ctx is not None:
+            payload = ctx.bcast(0, payload, tag="__ckpt_reshard_manifest")
+        step, manifest = payload
+        if manifest is None:
+            raise FileNotFoundError(f"no restorable checkpoint under {self.dir} (step={step})")
+        step_dir = self.dir / f"step-{step:08d}"
+
+        mode = via
+        if via == "auto":
+            ok = self._segments_visible(step_dir, manifest)
+            flags = [ok] if ctx is None else ctx.allgather(bool(ok), tag="__ckpt_reshard_mode")
+            mode = "direct" if all(flags) else "redist"
+        if mode not in ("direct", "redist"):
+            raise ValueError(f"via must be auto|direct|redist, got {via!r}")
+
+        trees: dict[str, dict] = {}
+        for name, entries in manifest["trees"].items():
+            leaves: dict[str, Any] = {}
+            for path, entry in entries.items():
+                m = _resolve_dst_map(dst_map, name, path, entry, np_)
+                if m is None:
+                    arr = self._restore_replicated(step_dir, entry, ctx, pid, mode)
+                    leaves[path] = _as_tensor(arr, entry["dtype"], dev)
+                else:
+                    leaves[path] = self._restore_dmat(step_dir, entry, m, ctx, pid, np_, mode)
+            trees[name] = _unflatten(leaves)
+        return step, trees, manifest.get("meta", {})
+
+    def _segments_visible(self, step_dir: Path, manifest: dict) -> bool:
+        try:
+            for entries in manifest["trees"].values():
+                for entry in entries.values():
+                    for seg in entry["segments"]:
+                        if not (step_dir / seg["file"]).exists():
+                            return False
+        except (KeyError, TypeError):
+            return False
+        return True
+
+    def _restore_replicated(self, step_dir, entry, ctx, pid, mode) -> np.ndarray:
+        if mode == "direct" or ctx is None:
+            return reshard_read(step_dir, entry)
+        arr = reshard_read(step_dir, entry) if pid == 0 else None
+        return ctx.bcast(0, arr, tag="__ckpt_reshard_repl")
+
+    def _restore_dmat(self, step_dir, entry, m: Dmap, ctx, pid, np_, mode) -> Dmat:
+        shape = tuple(int(s) for s in entry["shape"])
+        bf16 = _is_bf16(entry["dtype"])
+        dtype = np.float32 if bf16 else np.dtype(entry["dtype"])
+        if m.proclist and max(m.proclist) >= np_:
+            raise RuntimeError(f"destination map {m!r} does not fit the live world "
+                               f"(np={np_}); pass a dst_map over live ranks")
+        out = Dmat(shape, m, dtype=dtype, ctx=ctx)
+        if out.local is not None and out.local.size:
+            _note_buffer(out.local.nbytes)
+        if mode == "direct":
+            if m.inmap(pid):
+                _fill_owned_from_disk(step_dir, entry, m, shape, pid, out.local_view_owned())
+            return out
+        # redist: the saved map's ranks read their own shards, then the
+        # residual moves are one RedistPlan redistribution over the live
+        # transport — a checkpoint is just one more distribution.
+        src_map = (Dmap.from_json(entry["dmap"]) if "dmap" in entry
+                   else Dmap([1] * len(shape), proclist=[0]))
+        if max(src_map.proclist) >= np_:
+            raise RuntimeError(
+                f"cannot restore {entry.get('dmap')!r} via the transport: "
+                f"saved map needs rank {max(src_map.proclist)} but the live "
+                f"world has np={np_} and shard files are not visible to every rank")
+        src = Dmat(shape, src_map, dtype=dtype, ctx=ctx)
+        if src.local is not None and src.local.size:
+            _note_buffer(src.local.nbytes)
+        if src_map.inmap(pid):
+            _fill_owned_from_disk(step_dir, entry, src_map, shape, pid, src.local_view_owned())
+        redistribute(out, src)
+        return out
 
 
 def restore_resharded(mgr: CheckpointManager, step: int | None = None, ctx=None,
-                      dst_map=None, *, via: str = "auto"):
-    """Module-level alias of :meth:`CheckpointManager.restore_resharded`:
-    not ported."""
-    raise NotImplementedError(_NOT_PORTED)
+                      dst_map=None, *, via: str = "auto", device="cuda"):
+    """Module-level alias of :meth:`CheckpointManager.restore_resharded`
+    (the elastic-resume call site reads
+    ``restore_resharded(mgr, elastic_resume_step(mgr, ctx), ctx, new_map)``)."""
+    return mgr.restore_resharded(step, ctx, dst_map, via=via, device=device)
 
 
 def elastic_resume_step(mgr: CheckpointManager, ctx=None) -> int | None:
-    """The reference's recovery step agreed across a relaunched world: not
-    ported."""
-    raise NotImplementedError(_NOT_PORTED)
+    """The step every rank of a relaunched world should resume from.
+
+    A rank killed mid-step may hold one fewer checkpoint than its peers
+    (per-rank checkpoint roots, or an async save that never landed), so
+    the *consistent* recovery line is the minimum of the per-rank latest
+    valid steps.  Returns ``None`` when any rank has no valid checkpoint
+    (the world must start from scratch together).  Without ``ctx`` (or a
+    single-rank world) this is just this rank's ``latest_step()``.  Pair
+    it with :func:`restore_resharded` and a map over the new world."""
+    mine = mgr.latest_step()
+    if ctx is None or getattr(ctx, "np_", 1) <= 1:
+        return mine
+    latest = ctx.allgather(-1 if mine is None else int(mine), tag="__ckpt_resume")
+    lo = min(latest)
+    return None if lo < 0 else lo

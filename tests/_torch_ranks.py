@@ -2,7 +2,8 @@
 the port's multi-rank tests: N subprocesses of ``python -m
 repro_torch.launch.distributed_init --device cpu`` (one thread each)
 meeting at a ``FileStore`` under the caller's directory, never a fixed
-port."""
+port.  ``PYTHONFAULTHANDLER`` is set, so a rank that aborts in native
+code logs every thread's Python stack."""
 
 import os
 import subprocess
@@ -20,7 +21,7 @@ def run_ranks(out: Path, world: int, mode: str, *args, timeout: int = 240,
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO / 'tests'}",
                REPRO_NUM_HOSTS=str(world), REPRO_COORD=f"file://{out / 'store'}",
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.distributed_init", "--device", "cpu",
          str(WORKER), mode, str(out), *map(str, args)],

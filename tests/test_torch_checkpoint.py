@@ -5,7 +5,7 @@ format-2 manifest of FALLS segments from the reference's collective
 sharded save restores in the port, and the manager's retention, atomic
 publish, torn-step discovery and ``reshard_read`` windows behave as the
 reference's (``tests/test_train.py``, ``tests/test_ckpt_reshard.py``).
-The ``Dmat`` entry points are not ported and raise."""
+The ``Dmat`` paths are held to the reference in ``tests/test_torch_pgas.py``."""
 
 import json
 
@@ -220,14 +220,3 @@ def test_restore_without_a_checkpoint_or_a_card_raises(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mgr.restore()
 
-
-def test_the_dmat_entry_points_are_not_ported(tmp_path):
-    mgr = ckpt.CheckpointManager(tmp_path)
-    calls = (lambda: ckpt.save_tree_sharded(tmp_path, "params", {}, 0),
-             lambda: mgr.save_sharded(0, {}),
-             lambda: mgr.restore_resharded(),
-             lambda: ckpt.restore_resharded(mgr),
-             lambda: ckpt.elastic_resume_step(mgr))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()

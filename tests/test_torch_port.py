@@ -25,8 +25,9 @@ from repro_torch.train.data import synthetic_batch  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
+TWINS = [REPO / "examples" / "train_lm_torch.py", REPO / "examples" / "serve_lm_torch.py"]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"]
+    REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"] + TWINS
 ARCHS = jax_configs.ARCH_IDS
 
 
@@ -40,6 +41,11 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.dist.memmodel\n"
         "import repro_torch.core.torch_bridge, repro_torch.launch.mesh\n"
         "import repro_torch.launch.distributed_init, repro_torch.launch._torch_selftest\n"
+        "import repro_torch.comm, repro_torch.core.dmat, repro_torch.core.ops\n"
+        "import importlib.util\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "import torch.distributed as dist\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
         "             or m.startswith(('jax.', 'repro.')))\n"
@@ -49,8 +55,8 @@ def test_import_loads_neither_jax_nor_repro():
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                         text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, *map(str, TWINS)], env=env,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -141,7 +147,9 @@ def _code_without_docstrings(path):
 
 
 COPIES = ["models/config.py", "serve/scheduler.py", "obs/metrics.py", "obs/trace.py",
-          "core/pitfalls.py", "core/dmap.py", "core/redist.py",
+          "core/pitfalls.py", "core/dmap.py", "core/redist.py", "core/dmat.py", "core/ops.py",
+          "comm/context.py", "comm/collectives.py", "comm/threadcomm.py", "comm/frame.py",
+          "comm/liveness.py", "comm/faultinject.py", "comm/filempi.py",
           "configs/__init__.py", "configs/hpcc.py"] + [
     f"configs/{a.replace('-', '_').replace('.', '_')}.py" for a in ARCHS
 ]
