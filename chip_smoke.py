@@ -160,6 +160,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    gemma-2b, fp32, 2 slots, two requests arriving mid-decode): every
    request's 16 tokens, the fp32 rmsnorm and flash launches (counters
    zeroed just before, read just after), beside the same twin on the CPU.
+24. dryrun: ``launch/dryrun.py``'s trace (fakes, on the CPU) of
+   full-width gemma-2b's ``train`` step (fp32, 4 x 128, remat): its
+   FLOPs equal to ``FlopCounterMode`` over one real step on the card,
+   its traced peak beside that step's measured peak, the ``train``
+   phase's and ``hbm_model``'s, with the ratios; a bf16 prefill at (4,
+   128) traced through the kernels' stand-ins beside a real prefill
+   (peaks, aten FLOPs, stand-in calls against kernel launches); and the
+   production cell gemma-2b x train_4k on a fake world of 256 through
+   ``python -m repro_torch.launch.dryrun`` in a process that sees no card.
 
 Then the kernels line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -174,6 +183,7 @@ import gc
 import importlib.util
 import io
 import json
+import os
 import re
 import shutil
 import socket
@@ -637,9 +647,7 @@ def time_flash(gen, moe_gen) -> dict:
         sets = [tuple(torch.randn(b, s, n, d, generator=g, device="cuda").to(torch.bfloat16)
                       for n in (h, kh, kh)) for _ in range(n_sets)]
         kernel = functools.partial(fa.flash_attention, softcap=cap)
-        # causal pairs this run computes: S(S+1)/2 per (batch, head), 2
-        # products (the capped rows' one tanh a logit is not counted)
-        flops = 2 * 2 * b * h * (s * (s + 1) // 2) * d
+        cost = fa.cost(b, s, h, kh, d, causal=True, softcap=cap)
         row = rows[label] = {
             "shape": [b, s, h, kh, d], "dtype": "bfloat16", "softcap": cap,
             "tile": fa.tile_config(b, s, h, kh, d), "blocks": fa.grid_blocks(b, s, h, kh, d),
@@ -651,7 +659,7 @@ def time_flash(gen, moe_gen) -> dict:
             "library_ms": device_ms(library, sets) if cap is None else None,
             "host_us_per_call": _host_us(kernel, sets),
             "library_host_us_per_call": _host_us(library, sets) if cap is None else None,
-            **_bound(2 * (2 * b * s * h * d + 2 * b * s * kh * d), flops, BF16_FLOPS),
+            **_bound(cost["bytes"], cost["operations"], BF16_FLOPS),
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         del sets
@@ -675,8 +683,10 @@ def rms_sets(gen, m: int, d: int, n: int = 24, dtype=torch.bfloat16) -> list:
 
 
 def rms_bound(m: int, d: int, dtype) -> dict:
-    e = torch.finfo(dtype).bits // 8
-    return _bound(2 * m * d * e + 4 * d, 4 * m * d, FP32_FLOPS)
+    from repro_torch.kernels import rmsnorm as rn
+
+    cost = rn.cost(m, d, dtype)
+    return _bound(cost["bytes"], cost["operations"], FP32_FLOPS)
 
 
 def rms_floor_ms(rn, blocks: int, threads: int, n: int = 24) -> float:
@@ -731,21 +741,15 @@ def time_ssd(gen) -> dict:
                                         ("prefill_fp32", SSD_SHAPE, 8, torch.float32)):
         b, s, h, p, n, q = shape
         sets = [_ssd_inputs(gen, b, s, h, p, n, dtype) for _ in range(n_sets)]
-        # bytes: x in, y out, B, C in, in the dtype; fp32 dt in, state out.
-        # operations: per (b, h, chunk) the lower triangle of C B^T and of
-        # M X (Q(Q+1)/2 entries of N and P products), C state and the
-        # state update (Q N P each), two flops per product, at the dtype's
-        # peak (bf16 tensor cores; fp32 outside them)
-        e = 2 if dtype == torch.bfloat16 else 4
-        bytes_ = 2 * e * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n + 2 * e * b * s * n + 4 * h
-        tri = q * (q + 1) // 2
-        flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
+        # at the dtype's peak: bf16 tensor cores; fp32 outside them
+        cost = ss.cost(b, s, h, p, n, q, dtype)
         row = rows[label] = {
             "shape": list(shape), "dtype": str(dtype).removeprefix("torch."), "blocks": b * h,
             "ms": device_ms(lambda *a: ss.ssd_scan(*a, q), sets),
             "plain_ms": device_ms(lambda *a: ss.ssd_plain(*a, q, return_state=True), sets),
             "library_ms": None,  # no single PyTorch call computes the SSD scan
-            **_bound(bytes_, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS),
+            **_bound(cost["bytes"], cost["operations"],
+                     BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS),
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
         del sets
@@ -1973,6 +1977,134 @@ def phase_serve_lm(card: dict) -> dict:
     return out
 
 
+def phase_dryrun(card: dict, train: dict) -> dict:
+    """The dry run (``launch/dryrun.py``) against the card.  (1) Full-width
+    gemma-2b at the ``train`` phase's step (fp32, 4 x 128, remat, one
+    microbatch), traced on fakes on the CPU: its FLOPs must equal
+    ``FlopCounterMode`` over one real step of it on the card, and its
+    traced peak is printed beside that step's measured peak (above what
+    was allocated before its params), the ``train`` phase's and
+    ``hbm_model``'s.  (2) A bf16 prefill at (4, 128) traced through the
+    kernels' stand-ins, beside a real prefill with the kernels: the peaks,
+    the aten FLOPs (the kernels' own are no aten op) and the stand-in
+    calls against the kernels' launches.  (3) One production cell,
+    gemma-2b x train_4k on a fake world of 256 (32 x 8), through the CLI
+    in a process that sees no card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.memmodel import analytic_memory
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.train.data import synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig, init_opt_state, make_train_step
+
+    cfg = get_config("gemma-2b")
+    batch, seq = 4, 128
+    gib = 2**30
+
+    def fresh_base() -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    traced = dryrun.trace_cell(cfg, "train", batch, seq, None, microbatches=1, remat=True)
+    base = fresh_base()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    ts = TrainStepConfig(remat=True)
+    opt_state = init_opt_state(cfg, params, ts)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=10,
+                                            schedule="wsd" if cfg.wsd_schedule else "cosine"), ts)
+    b = synthetic_batch(cfg, batch, seq, 0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        _, _, m = step(params, opt_state, b)
+        loss = float(m["loss"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    card_flops = int(fc.get_total_flops())
+    if traced["flops"] != card_flops or not np.isfinite(loss):
+        raise AssertionError(f"traced FLOPs {traced['flops']}, the card's step {card_flops} "
+                             f"(loss {loss})")
+    del params, opt_state, step, b, m
+    hbm = analytic_memory(cfg, {"data": 1, "model": 1}, "train", batch, seq)["total"]
+    tp = traced["memory"]["peak_bytes"]
+    train_row = {
+        "shape": [batch, seq], "dtype": "float32", "remat": True, "microbatches": 1,
+        "traced_flops": traced["flops"], "card_flop_counter": card_flops,
+        "trace_s": traced["trace_s"], "traced_peak_gib": tp / gib,
+        "traced_at_peak_gib": {k: v / gib for k, v in traced["memory"]["at_peak"].items()},
+        "measured_step_peak_gib": peak / gib, "allocated_before_gib": base / gib,
+        "train_phase_peak_gib": train["max_memory_allocated_gib"],
+        "hbm_model_gib": hbm / gib,
+        "measured_over_traced": peak / tp, "measured_over_hbm_model": peak / hbm,
+        "train_phase_over_traced": train["max_memory_allocated_gib"] * gib / tp}
+
+    traced = dryrun.trace_cell(cfg, "prefill", batch, seq, None)
+    base = fresh_base()
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    tokens = synthetic_batch(cfg, batch, seq, 0, device="cuda")["tokens"]
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: mod.launches for name, mod in counters.items() if mod.launches}
+    calls = {name: k["calls"] for name, k in traced["kernels"].items()}
+    if (launches != calls or int(fc.get_total_flops()) != traced["aten_flops"]
+            or tuple(logits.shape) != (batch, cfg.vocab_padded)
+            or not torch.isfinite(logits[:, :cfg.vocab]).all()):
+        raise AssertionError(f"prefill: launches {launches} vs stand-ins {calls}, aten FLOPs "
+                             f"{fc.get_total_flops()} vs {traced['aten_flops']}")
+    del params, tokens, logits
+    fresh_base()
+    tp = traced["memory"]["peak_bytes"]
+    prefill_row = {
+        "shape": [batch, seq], "dtype": "bfloat16", "kernel_launches": launches,
+        "stand_in_calls": calls, "aten_flops": traced["aten_flops"],
+        "kernel_flops": traced["flops"] - traced["aten_flops"], "trace_s": traced["trace_s"],
+        "traced_peak_gib": tp / gib,
+        "traced_at_peak_gib": {k: v / gib for k, v in traced["memory"]["at_peak"].items()},
+        "measured_peak_gib": peak / gib, "measured_over_traced": peak / tp}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        path = Path(tmp) / "cell.jsonl"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                              "gemma-2b", "--shape", "train_4k", "--out", str(path)],
+                             env={**os.environ, "PYTHONPATH": str(SRC),
+                                  "CUDA_VISIBLE_DEVICES": ""},
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"dryrun CLI rc {res.returncode}: {res.stdout[-2000:]}"
+                                 f"{res.stderr[-2000:]}")
+        (rec,) = [json.loads(line) for line in path.read_text().splitlines()]
+    if rec["status"] != "ok" or rec["n_devices"] != 256 or rec["mesh_shape"] != "32x8":
+        raise AssertionError(f"dryrun cell {rec}")
+    cell = {"summary": res.stdout.strip().splitlines()[-1], "wall_s": wall,
+            "trace_s": rec["trace_s"], "microbatches": rec["microbatches"],
+            "param_dtype": rec["param_dtype"],
+            "flops_per_device": rec["cost"]["flops_per_device"],
+            "model_flops_per_device": rec["model_flops_per_device"],
+            "bytes_per_device_unfused": rec["cost"]["bytes_per_device"],
+            "collectives": rec["collectives"]["count"],
+            "link_gib_per_device": rec["cost"]["collective_bytes_per_device"] / gib,
+            "traced_peak_gib": rec["memory"]["peak_bytes"] / gib,
+            "hbm_model_gib": rec["hbm_model"]["total"] / gib}
+    out = {"card": card["nvidia_smi"], "model": cfg.name, "train": train_row,
+           "prefill": prefill_row, "production_cell": cell}
+    emit("dryrun", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2020,6 +2152,7 @@ def main() -> int:
         phase_train_lm(card, Path(tmp))
         phase_ckpt_reshard(card, Path(tmp) / "run", Path(tmp))
     paths["serve_lm"] = phase_serve_lm(card)
+    phase_dryrun(card, train)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -111,7 +111,26 @@ def _launcher():
     return fn
 
 
-def _check(q, k, v):
+def cost(b: int, s: int, h: int, kh: int, d: int, *, causal: bool = True,
+         softcap: float | None = None, dtype=torch.bfloat16) -> dict:
+    """One call's work, counted as ``PERF.md``'s bound counts it: the
+    query-key pairs (S(S+1)/2 per batch row and head when causal, else
+    S^2), two products of ``d`` multiply-adds each, 2 flops apiece (the
+    cap's tanh is not counted as a flop); q, k, v read once and the
+    output written once; one exp a pair (and a tanh with ``softcap``).
+    ``flops`` are matrix-product flops, as ``FlopCounterMode`` counts the
+    plain version's two einsums: equal to them without the causal mask."""
+    e = torch.finfo(dtype).bits // 8
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    flops = 2 * 2 * pairs * d
+    return {"flops": flops, "operations": flops,
+            "bytes": e * (2 * b * s * h * d + 2 * b * s * kh * d),
+            "transcendentals": pairs * (2 if softcap else 1)}
+
+
+def check_inputs(q, k, v):
+    """The kernel's refusals that shapes, dtypes and strides decide (a
+    fake tensor's stand-in refuses what the kernel would)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention: q (B,S,H,D) and k, v (B,S,KH,D) expected, got "
@@ -131,6 +150,10 @@ def _check(q, k, v):
                          f"fp32, one of {BF16_HEAD_DIMS} in bf16)")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+
+
+def _check(q, k, v):
+    check_inputs(q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
 

@@ -19,6 +19,16 @@ as above, and a CUDA input that requires grad makes the kernel's wrapper
 raise.  The switch is a context variable: it holds for the calling
 thread (and the tasks it starts), not for other threads, so a serve
 engine elsewhere in the process keeps its kernels.
+
+A ``FakeTensor`` input (``torch._subclasses.fake_tensor``: shapes and
+dtypes, no data), and only such an input, takes a stand-in outside
+``plain_kernels()``: it refuses what the kernel refuses for the inputs'
+shapes, dtypes and strides, allocates exactly the kernel's outputs (fake
+too) and adds the kernel's ``cost`` to the innermost ``kernel_tally()``.  The dry run
+(``launch/dryrun.py``) traces the serve paths so, as the card runs them,
+without the plain versions' buffers (plain attention at a 32k prompt
+would hold S^2 fp32 scores a head).  A real tensor never reaches a
+stand-in.
 """
 
 from __future__ import annotations
@@ -27,15 +37,21 @@ import contextlib
 import contextvars
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from . import flash_attention as _fa
+from . import rmsnorm as _rn
+from . import ssd_scan as _ss
 from .flash_attention import attention_plain, flash_attention
 from .rmsnorm import rmsnorm, rmsnorm_plain
 from .ssd_scan import ssd_plain, ssd_scan
 from .stream_triad import stream_triad
 
-__all__ = ["attention", "plain_kernels", "plain_route", "rmsnorm_op", "ssd", "triad"]
+__all__ = ["attention", "kernel_route", "kernel_tally", "plain_kernels", "plain_route",
+           "rmsnorm_op", "ssd", "triad"]
 
 _PLAIN = contextvars.ContextVar("repro_torch_plain_kernels", default=False)
+_TALLY = contextvars.ContextVar("repro_torch_kernel_tally", default=None)
 
 
 @contextlib.contextmanager
@@ -55,21 +71,60 @@ def plain_route() -> bool:
     return _PLAIN.get()
 
 
+def kernel_route(t: torch.Tensor) -> bool:
+    """Whether ``t``, outside ``plain_kernels()``, takes a kernel: a CUDA
+    tensor (the kernel) or a fake one (its stand-in)."""
+    return t.device.type == "cuda" or isinstance(t, FakeTensor)
+
+
+@contextlib.contextmanager
+def kernel_tally():
+    """Within the block, each stand-in call adds its kernel's ``cost``
+    under the kernel's name: ``{name: {"calls", "flops", "operations",
+    "bytes", "transcendentals"}}``, the dict yielded."""
+    tally: dict = {}
+    token = _TALLY.set(tally)
+    try:
+        yield tally
+    finally:
+        _TALLY.reset(token)
+
+
+def _stand_in(name: str, cost: dict) -> None:
+    tally = _TALLY.get()
+    if tally is not None:
+        row = tally.setdefault(name, dict.fromkeys(("calls", *cost), 0))
+        row["calls"] += 1
+        for k, v in cost.items():
+            row[k] += v
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, softcap: float | None = None) -> torch.Tensor:
     """GQA flash attention: q (B, S, H, D), k/v (B, S, KH, D) -> (B, S, H, D),
     the logits capped at ``softcap`` if it is given."""
     if _PLAIN.get():
         return attention_plain(q, k, v, causal, softcap)
+    if isinstance(q, FakeTensor):
+        _fa.check_inputs(q, k, v)
+        _stand_in("flash_attention", _fa.cost(*q.shape[:3], k.shape[2], q.shape[3],
+                                              causal=causal, softcap=softcap, dtype=q.dtype))
+        return torch.empty_like(q)
     return flash_attention(q, k, v, causal=causal, softcap=softcap)
 
 
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last dim of any (..., D) tensor."""
+    """RMSNorm over the last dim of any (..., D) tensor (a strided one is
+    copied to dense rows first)."""
     if _PLAIN.get():
         return rmsnorm_plain(x, w, eps)
     shape = x.shape
-    return rmsnorm(x.reshape(-1, shape[-1]), w, eps).reshape(shape)
+    rows = x.reshape(-1, shape[-1]).contiguous()  # the kernel reads dense rows
+    if isinstance(x, FakeTensor):
+        _rn.check_inputs(rows, w)
+        _stand_in("rmsnorm", _rn.cost(*rows.shape, x.dtype))
+        return torch.empty_like(rows).reshape(shape)
+    return rmsnorm(rows, w, eps).reshape(shape)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bm: torch.Tensor,
@@ -79,6 +134,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bm: torch.Tensor
     H, P), and with ``return_state`` also the (B, H, P, N) fp32 state."""
     if _PLAIN.get():
         return ssd_plain(x, dt, a_log, bm, cm, chunk, return_state=return_state)
+    if isinstance(x, FakeTensor):
+        _ss.check_inputs(x, dt, a_log, bm, cm, chunk)
+        b, s, h, p = x.shape
+        n = bm.shape[-1]
+        _stand_in("ssd_scan", _ss.cost(b, s, h, p, n, chunk, x.dtype))
+        y = x.new_empty((b, s, h, p))
+        state = x.new_empty((b, h, p, n), dtype=torch.float32)
+        return (y, state) if return_state else y
     y, state = ssd_scan(x, dt, a_log, bm, cm, chunk)
     return (y, state) if return_state else y
 

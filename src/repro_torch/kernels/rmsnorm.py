@@ -34,6 +34,27 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.
     return (xf * torch.rsqrt(var + eps) * (1.0 + w.float())).to(x.dtype)
 
 
+def cost(m: int, d: int, dtype=torch.bfloat16) -> dict:
+    """One call's work on (m, d) rows, counted as ``PERF.md``'s bound
+    counts it: x read and y written once, w (fp32) read once; 4
+    operations an element, one rsqrt a row.  No matrix product: 0
+    ``flops`` in ``FlopCounterMode``'s sense, which counts none for the
+    plain version either."""
+    e = torch.finfo(dtype).bits // 8
+    return {"flops": 0, "operations": 4 * m * d, "bytes": 2 * m * d * e + 4 * d,
+            "transcendentals": m}
+
+
+def check_inputs(x, w):
+    """The kernel's refusals that shapes, dtypes and strides decide."""
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)} must be (M, D), w (D,); got w {tuple(w.shape)}")
+    if x.dtype not in _DTYPES or w.dtype != torch.float32:
+        raise ValueError(f"rmsnorm: x {x.dtype} must be fp32 or bf16 and w fp32, got w {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm: x and w must be contiguous")
+
+
 @functools.cache
 def _lib():
     lib = _build.load("rmsnorm")
@@ -77,12 +98,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
         return rmsnorm_plain(x, w, eps)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"rmsnorm: x on {x.device}, w on {w.device}")
-    if x.dim() != 2 or w.shape != (x.shape[1],):
-        raise ValueError(f"rmsnorm: x {tuple(x.shape)} must be (M, D), w (D,); got w {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != torch.float32:
-        raise ValueError(f"rmsnorm: x {x.dtype} must be fp32 or bf16 and w fp32, got w {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm: x and w must be contiguous")
+    check_inputs(x, w)
     out = torch.empty_like(x)
     if x.shape[0] == 0:
         return out

@@ -98,7 +98,25 @@ def _launcher():
     return fn
 
 
-def _check(xh, dt, a_log, bm, cm, chunk):
+def cost(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype=torch.bfloat16) -> dict:
+    """One call's work, counted as ``PERF.md``'s bound counts it: x in and
+    y out, B and C in, in the dtype; fp32 dt in and state out; per (b, h,
+    chunk) the lower triangle of C B^T and of M X (Q(Q+1)/2 entries of N
+    and P products), C state and the state update (Q N P each), 2 flops a
+    product; one exp a lower-triangle decay and two a position (the
+    decays to the chunk's end and from its start)."""
+    e = torch.finfo(dtype).bits // 8
+    q = chunk
+    tri = q * (q + 1) // 2
+    flops = 2 * b * h * (s // q) * (tri * n + tri * p + 2 * q * n * p)
+    return {"flops": flops, "operations": flops,
+            "bytes": (2 * e * b * s * h * p + 4 * b * s * h + 4 * b * h * p * n
+                      + 2 * e * b * s * n + 4 * h),
+            "transcendentals": b * h * (s // q) * (tri + 2 * q)}
+
+
+def check_inputs(xh, dt, a_log, bm, cm, chunk):
+    """The kernel's refusals that shapes, dtypes and strides decide."""
     if xh.dim() != 4 or dt.dim() != 3 or bm.dim() != 3 or cm.shape != bm.shape:
         raise ValueError(
             f"ssd_scan: x (B,S,H,P), dt (B,S,H), bm/cm (B,S,N) expected, got "
@@ -134,7 +152,7 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return ssd_plain(xh, dt, a_log, bm, cm, chunk, return_state=True)
     if len(devices) != 1 or xh.device.type != "cuda":
         raise ValueError(f"ssd_scan: inputs on {sorted(map(str, devices))}")
-    _check(xh, dt, a_log, bm, cm, chunk)
+    check_inputs(xh, dt, a_log, bm, cm, chunk)
     b, s, h, p = xh.shape
     n = bm.shape[-1]
     y = torch.empty((b, s, h, p), dtype=xh.dtype, device=xh.device)

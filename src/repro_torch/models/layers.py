@@ -12,7 +12,8 @@ Decode attention has no kernel in the reference and stays torch ops.
 reference (the kernel has it too).  Past ``CHUNKED_ATTN_THRESHOLD``
 tokens the plain route (the CPU, or ``plain_kernels()`` in training)
 goes block by block (``attention_chunked``) instead of forming the
-O(S²) logits; on the card the flash kernel serves every S.
+O(S²) logits; on the card the flash kernel serves every S (and so
+does its stand-in for a fake tensor, ``kernels.ops``).
 The JAX package's sharding hints are dropped: the port's model body
 runs on each rank's local tensors (``repro_torch.dist.hints``).
 """
@@ -25,9 +26,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..kernels.ops import attention as _flash
-from ..kernels.ops import plain_route, rmsnorm_op
+from ..kernels.ops import kernel_route, plain_route, rmsnorm_op
 from .config import ModelConfig
 
 
@@ -52,6 +54,15 @@ def _device_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Te
     return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
 
 
+def _once_per_device(table, x: torch.Tensor, *key):
+    """``table(*key, x.device)``, cached; for a fake tensor (the dry run's)
+    made anew, so the caches never hold a fake that a later real call
+    would get."""
+    if isinstance(x, FakeTensor):
+        return table.__wrapped__(*key, x.device)
+    return table(*key, x.device)
+
+
 def _rotate_halves(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, Dh) rotated by the (B, S, Dh/2) angles, in x's dtype."""
     half = x.shape[-1] // 2
@@ -63,7 +74,7 @@ def _rotate_halves(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S) integer."""
-    freqs = _device_freqs(x.shape[-1], theta, x.device)
+    freqs = _once_per_device(_device_freqs, x, x.shape[-1], theta)
     return _rotate_halves(x, positions[..., None].float() * freqs)
 
 
@@ -84,8 +95,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     """Qwen2-VL multimodal RoPE: three position streams (t, h, w) rotate
     disjoint sections of the head dim.  x: (B, S, H, Dh); positions3:
     (3, B, S) integer.  Three equal streams reduce to ``apply_rope``."""
-    freqs = _device_freqs(x.shape[-1], theta, x.device)
-    sel = _mrope_streams(x.shape[-1] // 2, tuple(sections), x.device)
+    freqs = _once_per_device(_device_freqs, x, x.shape[-1], theta)
+    sel = _once_per_device(_mrope_streams, x, x.shape[-1] // 2, tuple(sections))
     # slot j of the (B, S, half) angles takes stream sel[j]
     return _rotate_halves(x, positions3.float()[sel].movedim(0, -1) * freqs)
 
@@ -174,7 +185,7 @@ def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     """Causal attention of the projected heads, capped at the config's
     softcap: the flash kernel (or its plain version), or past
     ``CHUNKED_ATTN_THRESHOLD`` on the plain route the block-by-block one."""
-    if q.shape[1] > CHUNKED_ATTN_THRESHOLD and (plain_route() or q.device.type == "cpu"):
+    if q.shape[1] > CHUNKED_ATTN_THRESHOLD and (plain_route() or not kernel_route(q)):
         return _chunked_core(q, k, v, cfg.attn_logit_softcap, 2048)
     return _flash(q, k, v, causal=True, softcap=cfg.attn_logit_softcap)
 

@@ -456,6 +456,28 @@ def test_moe_prefill_and_decode_launch_the_kernels(cuda):
     assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, 0, 0, 0]
 
 
+def test_last_position_prefill_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``make_prefill_step``'s last-position head (the dry run's prefill
+    body) normalises a strided (B, D) slice: the kernel gets dense rows,
+    and the logits equal the CPU's at fp32; rmsnorm 2L+1, flash L."""
+    from repro_torch.serve.engine import make_prefill_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("gemma-2b").reduced()
+    cpu = init_params(cfg, 3, dtype=torch.float32, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(3))
+    step = make_prefill_step(cfg)
+    mods = (rn, fa, ss, st)
+    with torch.no_grad():
+        want = step(cpu, {"tokens": tokens})
+        gpu = _to(cpu, cuda)
+        before = [m.launches for m in mods]
+        got = step(gpu, {"tokens": tokens.to(cuda)})
+    assert [m.launches - b0 for m, b0 in zip(mods, before)] == [
+        2 * cfg.n_layers + 1, cfg.n_layers, 0, 0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 def test_ssm_on_the_card_matches_the_cpu_and_launches_rmsnorm(cuda, monkeypatch):
     """rwkv6 reduced at fp32: a prefill over two chunks with a padded row
     and two decode steps on the card, against the CPU (logits, and the

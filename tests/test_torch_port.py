@@ -42,6 +42,7 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.core.torch_bridge, repro_torch.launch.mesh\n"
         "import repro_torch.launch.distributed_init, repro_torch.launch._torch_selftest\n"
         "import repro_torch.comm, repro_torch.core.dmat, repro_torch.core.ops\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.slurm\n"
         "import importlib.util\n"
         "for path in sys.argv[1:]:\n"
         "    spec = importlib.util.spec_from_file_location('twin', path)\n"
