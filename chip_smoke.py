@@ -155,12 +155,30 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    gauge within the largest owned part, ``elastic_resume_step`` reading
    60; the seconds of the save and each restore (host I/O and copies),
    the files opened and bytes read.
-23. serve_lm: the twin of ``examples/serve_lm.py``
+23. prun: pPython's own runtime on the card's host, every world real
+   processes started by the port's ``repro_torch.launch.pRUN`` (nothing
+   here launches a kernel): (a) ``redistribute_field`` on ``file``,
+   ``socket`` and ``shm`` (3 ranks) and ``hier`` (4 ranks on 2 virtual
+   nodes), each equal to the thread world's; (b) ``elastic_allreduce``
+   with rank 1 killed after 2 sends and ``restarts=1`` on ``shm`` and
+   ``file``, bitwise the unfaulted run's, in epoch 1; (c)
+   ``elastic_reshard`` killed and relaunched 2 -> 3 ranks on ``file``,
+   bitwise the fixed-size field; (d) ``ckpt_save`` of a 2048 x 1024
+   fp64 field on 2 ``shm`` processes, ``ckpt_restore`` on 3 (block) and
+   4 (cyclic), the seconds of each; (e) the round trip at 8 B and at 4
+   MiB over each process transport, between the 2 processes of a pRUN
+   world (``process_round_trips``) and between 2 thread-ranks of this
+   process (``comm.testing.run_transport_spmd``), median and spread of 7
+   repeats; (f) a traced ``obs._selftest:traced_ring`` world on ``shm``
+   whose merged trace ``obs.report.summarize`` shows on every rank.
+   With ``os.cpu_count()``.  Every arena directory lies in a private
+   parent under ``/dev/shm`` that must be empty after each world.
+24. serve_lm: the twin of ``examples/serve_lm.py``
    (``examples/serve_lm_torch.py``) at its defaults on the card (reduced
    gemma-2b, fp32, 2 slots, two requests arriving mid-decode): every
    request's 16 tokens, the fp32 rmsnorm and flash launches (counters
    zeroed just before, read just after), beside the same twin on the CPU.
-24. dryrun: ``launch/dryrun.py``'s trace (fakes, on the CPU) of
+25. dryrun: ``launch/dryrun.py``'s trace (fakes, on the CPU) of
    full-width gemma-2b's ``train`` step (fp32, 4 x 128, remat): its
    FLOPs equal to ``FlopCounterMode`` over one real step on the card,
    its traced peak beside that step's measured peak, the ``train``
@@ -1937,6 +1955,190 @@ def phase_ckpt_reshard(card: dict, run_dir: Path, tmp: Path) -> dict:
     return out
 
 
+def _round_trips(nbytes: int, trips: int, repeats: int):
+    """An SPMD body for 2 ranks: rank 0 sends ``nbytes`` to rank 1, which
+    sends them back; after one warm-up trip, ``repeats`` times ``trips``
+    round trips, each repeat's seconds a trip on rank 0."""
+    def body():
+        from repro_torch.comm import get_context
+
+        ctx = get_context()
+        buf = np.zeros(nbytes, dtype=np.uint8)
+        per_trip = []
+        for rep in range(repeats + 1):
+            t0 = time.perf_counter()
+            for i in range(trips):
+                if ctx.pid == 0:
+                    ctx.send(1, ("ping", nbytes, rep, i), buf)
+                    ctx.recv(1, ("pong", nbytes, rep, i))
+                else:
+                    ctx.send(0, ("pong", nbytes, rep, i), ctx.recv(0, ("ping", nbytes, rep, i)))
+            per_trip.append((time.perf_counter() - t0) / trips)
+        ctx.barrier()
+        return per_trip[1:]
+
+    return body
+
+
+PINGPONG_SIZES = (("8B", 8, 200), ("4MiB", 4 << 20, 10))
+PINGPONG_REPEATS = 7
+
+
+def process_round_trips() -> list:
+    """``_round_trips`` at each of ``PINGPONG_SIZES`` as a pRUN body
+    (``chip_smoke:process_round_trips``): a world of 2 processes."""
+    return [_round_trips(nbytes, trips, PINGPONG_REPEATS)()
+            for _, nbytes, trips in PINGPONG_SIZES]
+
+
+def phase_prun(card: dict, tmp: Path) -> dict:
+    """pPython's runtime on the card's host (see the module docstring,
+    phase 23).  Every world is real processes of the port's pRUN, which
+    imports no torch; the bodies that checkpoint import it and restore
+    host tensors.  Every shm and hier arena directory, the throwaway
+    ones of ``comm.testing`` too, lies in a parent directory of this
+    run's own, which must be empty after each world.  Seconds are wall
+    time around each ``pRUN`` call: process start, imports, the body,
+    the result."""
+    from repro_torch.comm import testing
+    from repro_torch.launch import pRUN
+    from repro_torch.obs import report
+
+    selftest = "repro_torch.launch._selftest"
+    env = {"PYTHONPATH": str(SRC)}
+    shm_parent = Path(tempfile.mkdtemp(prefix="chip_smoke_shm_", dir=testing.shm_base_dir()))
+    shm_base_dir = testing.shm_base_dir
+    testing.shm_base_dir = lambda: str(shm_parent)
+
+    def left_in_shm_parent(what):
+        for d in shm_parent.iterdir():
+            if any(d.iterdir()):
+                raise AssertionError(f"{what} left {sorted(p.name for p in d.iterdir())} in {d}")
+            d.rmdir()
+
+    def world(fn, np_, transport, *, args=(), target=selftest, **kw):
+        e = {**env, **kw.pop("env", {})}
+        if transport in ("shm", "hier"):
+            e["PPYTHON_SHM_DIR"] = tempfile.mkdtemp(prefix="arena_", dir=shm_parent)
+        t0 = time.perf_counter()
+        res = pRUN(f"{target}:{fn}", np_, transport=transport, args=args, timeout=300,
+                   env=e, **kw)
+        secs = time.perf_counter() - t0
+        left_in_shm_parent(f"{fn} on {transport}")
+        return res, secs
+
+    try:
+        # (a) one corner turn on each process transport against the thread world
+        redistribute = []
+        for transport, np_, kw in [("file", 3, {}), ("socket", 3, {}), ("shm", 3, {}),
+                                   ("hier", 4, {"nodes": 2})]:
+            want = pRUN(f"{selftest}:redistribute_field", np_, transport="thread")
+            got, secs = world("redistribute_field", np_, transport, **kw)
+            if got != want or got[0] != np.arange(90.0).reshape(9, 10).tolist():
+                raise AssertionError(f"redistribute_field on {transport} differs from threads")
+            redistribute.append({"transport": transport, "np": np_, **kw, "seconds": secs,
+                                 "equal_to_threads": True})
+
+        # (b) a gang restart on shm and on file, bitwise the unfaulted run
+        def allreduce_env(name, fault):
+            e = {"PPYTHON_ELASTIC_CKPT": str(tmp / name)}
+            if fault:
+                e["PPYTHON_FAULT"] = "kill:rank=1,after_sends=2"
+            return e
+
+        clean, clean_s = world("elastic_allreduce", 2, "file", env=allreduce_env("clean", False))
+        if [epoch for _, epoch in clean] != [0, 0]:
+            raise AssertionError(f"the unfaulted run ended in epochs {clean}")
+        restarts = [{"transport": "file", "np": 2, "fault": None, "seconds": clean_s, "epoch": 0}]
+        for transport in ("shm", "file"):
+            got, secs = world("elastic_allreduce", 2, transport, restarts=1,
+                              env=allreduce_env(f"gang_{transport}", True))
+            if got != [(clean[0][0], 1)] * 2:
+                raise AssertionError(f"gang restart on {transport}: {got} vs {clean}")
+            restarts.append({"transport": transport, "np": 2,
+                             "fault": "kill:rank=1,after_sends=2", "seconds": secs, "epoch": 1,
+                             "bitwise_equal_to_unfaulted": True})
+
+        # (c) killed at 2 ranks, resumed at 3 through restore_resharded
+        got, resize_s = world("elastic_reshard", 2, "file", restarts=1, elastic_np=3,
+                              env={"PPYTHON_ELASTIC_CKPT": str(tmp / "reshard"),
+                                   "PPYTHON_FAULT": "kill:rank=1,after_sends=4"})
+        field = np.arange(13.0)[:, None] * 5 + np.arange(5.0)[None, :] + 1.0
+        if ([(e, w) for _, e, w in got] != [(1, 3)] * 3
+                or got[0][0] != (field * sum(range(1, 7))).tolist()):
+            raise AssertionError("elastic_reshard 2 -> 3 differs from the fixed-size field")
+        resize = {"transport": "file", "np": "2 -> 3", "seconds": resize_s, "epoch": 1,
+                  "bitwise_equal_to_fixed_size": True}
+
+        # (d) a sharded save by 2 shm processes, restored by 3 and by 4
+        rows, cols = 2048, 1024
+        ckpt = str(tmp / "prun_ckpt")
+        want = (np.arange(float(rows))[:, None] * cols + np.arange(float(cols))[None, :] + 1.0)
+        saved, save_s = world("ckpt_save", 2, "shm", args=(ckpt, str(rows), str(cols)))
+        if saved != [True, True]:
+            raise AssertionError(f"ckpt_save returned {saved}")
+        ckpt_rows = [{"op": "save", "np": 2, "map": "b", "transport": "shm", "seconds": save_s}]
+        for np_, dist in ((3, "b"), (4, "c")):
+            got, secs = world("ckpt_restore", np_, "shm", args=(ckpt, dist))
+            if not np.array_equal(np.asarray(got[0]), want):
+                raise AssertionError(f"ckpt_restore on {np_} ({dist}) differs from the field")
+            ckpt_rows.append({"op": "restore", "np": np_, "map": dist, "transport": "shm",
+                              "seconds": secs, "bitwise_equal": True})
+
+        # (e) round trips over each process transport: between 2 processes
+        # of a pRUN world, and between 2 thread-ranks of this process
+        pingpong = []
+        for transport in ("file", "socket", "shm", "hier"):
+            procs, _ = world("process_round_trips", 2, transport, target="chip_smoke",
+                             env={"PYTHONPATH": os.pathsep.join(map(str, (ROOT, SRC)))},
+                             **({"nodes": 2} if transport == "hier" else {}))
+            threads = [testing.run_transport_spmd(_round_trips(nbytes, trips, PINGPONG_REPEATS),
+                                                  2, transport, timeout=300)[0]
+                       for _, nbytes, trips in PINGPONG_SIZES]
+            left_in_shm_parent(f"thread-ranks on {transport}")
+            row = {"transport": transport, "fabric": "tcp (2 virtual nodes)"
+                   if transport == "hier" else transport}
+            for ranks, per_size in (("processes", procs[0]), ("thread_ranks", threads)):
+                row[ranks] = {}
+                for (label, nbytes, trips), reps in zip(PINGPONG_SIZES, per_size):
+                    med = float(np.median(reps))
+                    row[ranks][label] = {
+                        "rtt_us_median": med * 1e6, "rtt_us_min": min(reps) * 1e6,
+                        "rtt_us_max": max(reps) * 1e6, "repeats": len(reps),
+                        "trips_a_repeat": trips}
+                    if nbytes > 8:
+                        row[ranks][label]["gib_s_median"] = 2 * nbytes / med / 2**30
+            pingpong.append(row)
+
+        # (f) a traced world: the merged trace holds every rank
+        trace_dir = tmp / "traces"
+        trace_dir.mkdir()
+        ring, trace_s = world("traced_ring", 3, "shm", target="repro_torch.obs._selftest",
+                              trace=True, env={"PPYTHON_TRACE_DIR": str(trace_dir)})
+        (path,) = trace_dir.glob("ppython_trace_*.json")
+        doc = json.loads(path.read_text())
+        if report.validate(doc, report.default_schema()):
+            raise AssertionError("the merged trace breaks the schema")
+        summary = report.summarize(doc)
+        if sorted(summary["ranks"]) != [0, 1, 2] or len(set(ring)) != 1:
+            raise AssertionError(f"traced ring: ranks {sorted(summary['ranks'])}, "
+                                 f"results {ring}")
+        traced = {"transport": "shm", "np": 3, "seconds": trace_s,
+                  "events": len(doc["traceEvents"]),
+                  "ranks": {str(r): d for r, d in summary["ranks"].items()},
+                  "ops": sorted(summary["ops"])}
+    finally:
+        testing.shm_base_dir = shm_base_dir
+        shutil.rmtree(shm_parent, ignore_errors=True)
+    out = {"card": card["nvidia_smi"], "host_cpus": os.cpu_count(),
+           "redistribute": redistribute, "gang_restart": restarts, "elastic_resize": resize,
+           "ckpt": {"rows": rows, "cols": cols, "dtype": "float64", "runs": ckpt_rows},
+           "pingpong": pingpong, "traced": traced,
+           "note": "the card's host: processes, /dev/shm and loopback TCP; no kernel"}
+    emit("prun", **out)
+    return out
+
+
 def phase_serve_lm(card: dict) -> dict:
     """The twin of ``examples/serve_lm.py`` (``examples/serve_lm_torch.py``)
     at its defaults on the card: reduced gemma-2b in fp32, 2 slots, two
@@ -2151,6 +2353,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as tmp:
         phase_train_lm(card, Path(tmp))
         phase_ckpt_reshard(card, Path(tmp) / "run", Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prun_") as tmp:
+        phase_prun(card, Path(tmp))
     paths["serve_lm"] = phase_serve_lm(card)
     phase_dryrun(card, train)
 

@@ -1,8 +1,12 @@
-"""Observability for the port: the process-wide metrics registry and
-per-process span tracing.
+"""Observability for the port: the process-wide metrics registry,
+per-process span tracing and the merged-trace report.
 
-``repro_torch.obs.metrics`` and ``repro_torch.obs.trace`` are the port's
-own copies of ``repro.obs.metrics`` and ``repro.obs.trace``.  The serve
+``repro_torch.obs.metrics``, ``repro_torch.obs.trace`` and
+``repro_torch.obs.report`` are the port's own copies of ``repro.obs``'s
+modules (standard library only).  A traced pRUN world
+(``pRUN(..., trace=True)``) merges its ranks' buffers into one
+Chrome-trace JSON; ``python -m repro_torch.obs.report TRACE.json
+[--validate]`` prints its per-op and per-rank tables.  The serve
 engine's ``serve_stats()`` is a view over the registry; the engine
 records ``serve.prefill``/``serve.decode`` spans and ``serve.ttft``/
 ``serve.admit_group`` instants, and the training loop a ``train.step``

@@ -18,6 +18,10 @@
 * serve_lm: the twin's ``run`` on the JAX example's ``PRNGKey(0)``
   weights (bridged by ``repro_torch.weights``) gives the JAX example's
   greedy tokens at fp32, for gemma-2b and deepseek-moe-16b reduced.
+* quickstart, fft_2d, elastic_restart: each twin prints what its
+  original prints, run as a script; the quickstart twin's ``--processes``
+  world (the port's pRUN) prints the original's, and with ``--trace`` it
+  leaves a merged trace that ``python -m repro_torch.obs.report`` reads.
 
 The JAX training example runs as a subprocess from the repo root, as its
 ``sys.path`` line expects.
@@ -140,3 +144,42 @@ def test_serve_twin_gives_the_jax_examples_tokens(arch, monkeypatch, capsys):
     assert [len(t) for t in got] == [args.max_new] * 4
     assert got == want
     assert stats["tokens_generated"] == 4 * args.max_new and stats["retired"] == 4
+
+
+def _script(name, *argv, cwd=REPO, env=None):
+    res = subprocess.run([sys.executable, str(REPO / "examples" / name), *argv], cwd=cwd,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return res.stdout
+
+
+@pytest.mark.parametrize("name,argv", [("quickstart", []), ("fft_2d", ["--np", "3"]),
+                                       ("elastic_restart", [])])
+def test_ppython_twins_print_what_the_originals_print(name, argv, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
+               TMPDIR=str(tmp_path))
+    got = _script(f"{name}_torch.py", *argv, env=env)
+    assert got == _script(f"{name}.py", *argv, env=env)
+    assert got.rstrip().endswith(f"{name} OK")
+
+
+def test_quickstart_twin_runs_a_traced_world_of_processes(tmp_path):
+    """``--processes`` launches the port's pRUN from a directory outside
+    the checkout (scratch and trace there); ``--trace`` leaves one merged
+    trace of the 4 ranks."""
+    run, scratch = tmp_path / "run", tmp_path / "tmp"
+    run.mkdir()
+    scratch.mkdir()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO)]),
+               JAX_PLATFORMS="cpu", TMPDIR=str(scratch))
+    env.pop("PPYTHON_TRACE_DIR", None)
+    got = _script("quickstart_torch.py", "--processes", "--trace", cwd=run, env=env)
+    assert got == _script("quickstart.py", "--processes", cwd=run, env=env)
+    (trace,) = (run / "traces").glob("ppython_trace_*.json")
+    res = subprocess.run([sys.executable, "-m", "repro_torch.obs.report", "--validate",
+                          str(trace)], cwd=run, env=env, capture_output=True, text=True,
+                         timeout=60)
+    assert res.returncode == 0 and "schema OK" in res.stdout, res.stderr
+    for rank in range(4):
+        assert re.search(rf"^{rank} +\d+", res.stdout, re.M), res.stdout
+    assert list(scratch.iterdir()) == []

@@ -11,8 +11,9 @@ the reference's save, bit for bit.  The port writes the reference's
 manifest and ``.npy`` bytes, and each package restores what the other
 saved.  Then the edge cases (bf16, never-opened shards, the peak buffer,
 a map too big for the world, replicated leaves, ``elastic_resume_step``),
-a FileMPI world of processes (``tests/_torch_pgas_worker.py``), and the
-transports the port leaves out.
+FileMPI worlds of processes (``tests/_torch_pgas_worker.py``), and the
+port's pRUN against the reference's on the socket, shm and hier
+transports, saves crossing between the two packages' worlds both ways.
 """
 
 import json
@@ -34,6 +35,7 @@ import repro.core as jax_core  # noqa: E402
 import repro_torch.comm as port_comm  # noqa: E402
 import repro_torch.core as port_core  # noqa: E402
 from repro.train import checkpoint as jax_ckpt  # noqa: E402
+from _torch_prun import private_tmp, shm_parent, world_env, world_kwargs  # noqa: E402,F401
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 
@@ -397,7 +399,7 @@ def test_file_world_save_np2_restore_np4(tmp_path, via):
     np.testing.assert_array_equal(np.load(out), field(13, 5))
 
 
-def test_file_world_restores_a_reference_prun_save(tmp_path):
+def test_file_world_restores_a_reference_prun_save(tmp_path, private_tmp):
     from repro.launch import pRUN
 
     ck, out = tmp_path / "ckpt", tmp_path / "full.npy"
@@ -408,18 +410,38 @@ def test_file_world_restores_a_reference_prun_save(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the transports the port leaves out
+# the process transports: the port's pRUN against the reference's
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("transport", ["socket", "shm", "hier"])
-def test_transports_not_in_the_port_fail_on_init(monkeypatch, transport):
-    monkeypatch.setenv("PPYTHON_TRANSPORT", transport)
-    monkeypatch.setenv("PPYTHON_NP", "2")
-    monkeypatch.setenv("PPYTHON_PID", "0")
-    monkeypatch.setenv("PPYTHON_COMM_DIR", "/nonexistent")
-    with pytest.raises(ModuleNotFoundError, match=f"repro_torch.comm.{transport}comm"):
-        port_comm.init()
+def test_port_prun_worlds_equal_the_reference_pruns(transport, shm_parent):
+    """``redistribute_field`` (a corner turn of the 9 x 10 arange field)
+    on a world of the port's pRUN equals the reference pRUN's world on
+    the same transport (hier: 4 ranks on 2 virtual nodes)."""
+    from repro.launch import pRUN as ref_pRUN
+    from repro_torch.launch import pRUN
+
+    kw = world_kwargs(transport)
+    want = ref_pRUN("repro.launch._selftest:redistribute_field", transport=transport,
+                    timeout=120, env=world_env(transport, shm_parent), **kw)
+    got = pRUN("repro_torch.launch._selftest:redistribute_field", transport=transport,
+               timeout=120, env=world_env(transport, shm_parent), **kw)
+    assert got == want
+    assert got[0] == np.arange(90.0).reshape(9, 10).tolist()
+    assert got[1:] == [None] * (kw["np_"] - 1)
+
+
+def test_a_reference_world_restores_a_port_prun_save(tmp_path, private_tmp):
+    from repro.launch import pRUN as ref_pRUN
+    from repro_torch.launch import pRUN
+
+    ck = tmp_path / "ckpt"
+    assert pRUN("repro_torch.launch._selftest:ckpt_save", 2, args=(str(ck),),
+                transport="file", timeout=120) == [True, True]
+    got = ref_pRUN("repro.launch._selftest:ckpt_restore", 3, args=(str(ck), "c"),
+                   transport="file", timeout=120)
+    np.testing.assert_array_equal(np.asarray(got[0]), field(13, 5))
 
 
 def test_the_file_transport_is_the_default_of_init(monkeypatch, tmp_path):

@@ -5,6 +5,7 @@ refuse to fall back to the CPU."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -25,7 +26,8 @@ from repro_torch.train.data import synthetic_batch  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
-TWINS = [REPO / "examples" / "train_lm_torch.py", REPO / "examples" / "serve_lm_torch.py"]
+TWINS = [REPO / "examples" / f"{name}_torch.py"
+         for name in ("train_lm", "serve_lm", "quickstart", "fft_2d", "elastic_restart")]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "benchmarks" / "rmsnorm_ab_torch.py"] + TWINS
 ARCHS = jax_configs.ARCH_IDS
@@ -43,6 +45,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import repro_torch.launch.distributed_init, repro_torch.launch._torch_selftest\n"
         "import repro_torch.comm, repro_torch.core.dmat, repro_torch.core.ops\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.slurm\n"
+        "import repro_torch.launch.prun, repro_torch.launch._selftest\n"
+        "import repro_torch.comm.testing, repro_torch.obs.report, repro_torch.obs._selftest\n"
         "import importlib.util\n"
         "for path in sys.argv[1:]:\n"
         "    spec = importlib.util.spec_from_file_location('twin', path)\n"
@@ -58,6 +62,24 @@ def test_import_loads_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run([sys.executable, "-c", code, *map(str, TWINS)], env=env,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_ppython_layer_loads_no_torch():
+    """pRUN workers must start fast: the package and pPython's layer
+    (core, comm, launch, obs) import NumPy and the standard library only."""
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.comm, repro_torch.core, repro_torch.obs\n"
+        "import repro_torch.launch, repro_torch.launch.prun, repro_torch.obs.report\n"
+        "import repro_torch.comm.testing, repro_torch.launch.slurm\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -136,7 +158,7 @@ def test_engine_refuses_an_unsupported_device():
         ContinuousBatchingEngine(cfg, params, device="meta")
 
 
-def _code_without_docstrings(path):
+def _tree_without_docstrings(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -144,23 +166,120 @@ def _code_without_docstrings(path):
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
             node.body = body[1:]
-    return ast.dump(tree)
+    return tree
+
+
+def _code_without_docstrings(path):
+    return ast.dump(_tree_without_docstrings(path))
+
+
+PORT_PATH = re.compile(r"\brepro_torch(?=\.)")
+PORT_MODULE = re.compile(r"\brepro_torch(?:\.\w+)+")
+
+
+def _undo_declared_rename(tree) -> set:
+    """Turn ``repro_torch`` back into ``repro`` where it starts a dotted
+    module path in an import or a string constant; returns the module
+    paths (as the port spells them) it did so in."""
+    paths = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if PORT_PATH.match(alias.name):
+                    paths.add(alias.name)
+                    alias.name = PORT_PATH.sub("repro", alias.name)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if PORT_PATH.match(node.module):
+                paths.add(node.module)
+                node.module = PORT_PATH.sub("repro", node.module)
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and PORT_PATH.search(node.value)):
+            paths.update(PORT_MODULE.findall(node.value))
+            node.value = PORT_PATH.sub("repro", node.value)
+    return paths
+
+
+def _undo_host_reads(tree) -> list:
+    """Drop a ``device="cpu"`` keyword from every call; returns the names
+    of the functions called with it."""
+    called = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            keep = [k for k in node.keywords
+                    if not (k.arg == "device" and isinstance(k.value, ast.Constant)
+                            and k.value.value == "cpu")]
+            if len(keep) < len(node.keywords):
+                func = node.func
+                called.append(func.attr if isinstance(func, ast.Attribute) else func.id)
+                node.keywords = keep
+    return sorted(called)
+
+
+def _assert_equal_under_rename(port_tree, ref_tree, declared, where, host_reads=None):
+    renamed = _undo_declared_rename(port_tree)
+    assert renamed == set(declared), (
+        f"{where}: repro -> repro_torch in {sorted(renamed)}, declared {sorted(declared)}")
+    if host_reads is not None:
+        reads = _undo_host_reads(port_tree)
+        assert reads == sorted(host_reads), (
+            f"{where}: device='cpu' passed to {reads}, declared {sorted(host_reads)}")
+    assert ast.dump(port_tree) == ast.dump(ref_tree), f"{where} differs from the reference"
 
 
 COPIES = ["models/config.py", "serve/scheduler.py", "obs/metrics.py", "obs/trace.py",
           "core/pitfalls.py", "core/dmap.py", "core/redist.py", "core/dmat.py", "core/ops.py",
           "comm/context.py", "comm/collectives.py", "comm/threadcomm.py", "comm/frame.py",
           "comm/liveness.py", "comm/faultinject.py", "comm/filempi.py",
-          "configs/__init__.py", "configs/hpcc.py"] + [
+          "comm/rendezvous.py", "comm/socketcomm.py", "comm/shmcomm.py", "comm/hiercomm.py",
+          "comm/testing.py", "launch/prun.py", "launch/_selftest.py", "obs/_selftest.py",
+          "obs/report.py", "configs/__init__.py", "configs/hpcc.py"] + [
     f"configs/{a.replace('-', '_').replace('.', '_')}.py" for a in ARCHS
 ]
+
+# The declared differences.  RENAMED: for each file (docstrings aside),
+# the dotted module paths, in an import or a string constant, whose
+# first part ``repro`` becomes ``repro_torch``.  HOST_READS: the calls
+# that pass ``device="cpu"`` where the reference passes no device: the
+# self-test bodies are NumPy code, and the port's checkpoint readers
+# default to the card.  Any other difference fails.
+RENAMED = {
+    "launch/prun.py": {"repro_torch.launch.prun"},  # _worker_cmd's ``-m``
+    "launch/_selftest.py": {"repro_torch.core", "repro_torch.comm", "repro_torch.comm.context",
+                            "repro_torch.train.checkpoint"},
+    "obs/_selftest.py": {"repro_torch.comm", "repro_torch.obs"},
+    "obs/report.py": {"repro_torch.obs.report"},
+}
+HOST_READS = {"launch/_selftest.py": ["restore", "restore_resharded", "restore_resharded"]}
+SLURM_RENAMED = {"slurm_script": {"repro_torch.launch.prun"}, "submit": set()}
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copied_modules_equal_their_originals(rel):
     """The port's copies of pure-Python modules differ from the JAX
-    package's only in their docstrings."""
+    package's only in their docstrings and, where declared, in the
+    package name of a module path and in a reader's host device."""
     src = REPO / "src"
-    assert _code_without_docstrings(src / "repro_torch" / rel) == (
-        _code_without_docstrings(src / "repro" / rel)
-    )
+    _assert_equal_under_rename(_tree_without_docstrings(src / "repro_torch" / rel),
+                               _tree_without_docstrings(src / "repro" / rel),
+                               RENAMED.get(rel, ()), rel, HOST_READS.get(rel))
+
+
+def test_trace_schema_is_the_references_bytes():
+    src = REPO / "src"
+    assert (src / "repro_torch" / "obs" / "trace_schema.json").read_bytes() == (
+        src / "repro" / "obs" / "trace_schema.json").read_bytes()
+
+
+@pytest.mark.parametrize("fn", sorted(SLURM_RENAMED))
+def test_slurm_functions_equal_the_references(fn):
+    """``slurm_script`` and ``submit`` are the reference's, launching the
+    port's pRUN workers."""
+    src = REPO / "src"
+
+    def function(path):
+        return next(n for n in _tree_without_docstrings(path).body
+                    if isinstance(n, ast.FunctionDef) and n.name == fn)
+
+    _assert_equal_under_rename(function(src / "repro_torch" / "launch" / "slurm.py"),
+                               function(src / "repro" / "launch" / "slurm.py"),
+                               SLURM_RENAMED[fn], f"slurm.py::{fn}")
