@@ -1,0 +1,12 @@
+"""Model layers: the device time of the MoE layers' combine in an
+admission, in ms: the ``device_ms`` of the program's ``moe.combine``
+regions (the gather with the gate weights, the sum over the choices,
+the shared experts and their add) summed over the layers of each
+``serve.prefill`` step inside the window, averaged over those steps,
+the profiled steps left out."""
+
+from chipbench import regions
+
+
+def read(ctx):
+    return regions.device_ms_per_step(ctx, "serve.prefill", ("moe.combine",))

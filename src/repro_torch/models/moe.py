@@ -32,6 +32,15 @@ step keeps the engine's one host copy.  That is also why the routed
 counts of the aux loss are read off the sorted run boundaries, where the
 reference adds ones per routed pair: CUDA ``torch.bincount`` reads its
 input's maximum back to the host.
+
+With tracing on, three regions (``obs.device_spans.region``) cover the
+body, each with ``tokens`` (T), ``pairs`` (T·k) and ``rows`` (E·(C+1),
+the buffer rows computed): ``moe.dispatch`` (route, sort, the buffer's
+fill and scatter), ``moe.experts`` (the three products and the
+activation) and ``moe.combine`` (the weighted gather, the sum over k,
+the shared experts, the aux loss).  Inside an engine step on the card
+they are device-timed; each starts at the event that ends the one
+before it (``after=``), since nothing is queued between them.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..dist.hints import current_mesh, rows_split
+from ..obs.device_spans import region
 from .config import ModelConfig
 from .layers import _act, ffn, ffn_param_shapes
 
@@ -85,65 +95,68 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, cap: int | None = None):
     t = b * s
     k, e = cfg.moe_top_k, cfg.n_experts
     dev = x.device
-    tokens = x.reshape(t, d)
-    gates, top_w, top_i = route(cfg, p["router"], tokens)
+    with region("moe.dispatch", tokens=t, pairs=t * k) as sp:
+        tokens = x.reshape(t, d)
+        gates, top_w, top_i = route(cfg, p["router"], tokens)
 
-    # slot of each (token, choice) pair in its expert's buffer: its place
-    # in the expert's run of a stable sort of the expert ids
-    flat_e = top_i.reshape(-1)  # (T*K,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e.index_select(0, order)
-    bounds = torch.searchsorted(sorted_e, torch.arange(e + 1, device=dev, dtype=flat_e.dtype))
-    pos_sorted = torch.arange(t * k, device=dev) - bounds.index_select(0, sorted_e)
-    pos_in_e = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    counts = bounds[1:] - bounds[:-1]  # pairs routed to each expert
-    t_all = t
-    if cap is None and (axis := _data_axis()) is not None:
-        group, parts, me = axis
-        from ..dist.shard import all_gather_into
+        # slot of each (token, choice) pair in its expert's buffer: its place
+        # in the expert's run of a stable sort of the expert ids
+        flat_e = top_i.reshape(-1)  # (T*K,)
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e.index_select(0, order)
+        bounds = torch.searchsorted(sorted_e, torch.arange(e + 1, device=dev, dtype=flat_e.dtype))
+        pos_sorted = torch.arange(t * k, device=dev) - bounds.index_select(0, sorted_e)
+        pos_in_e = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+        counts = bounds[1:] - bounds[:-1]  # pairs routed to each expert
+        t_all = t
+        if cap is None and (axis := _data_axis()) is not None:
+            group, parts, me = axis
+            from ..dist.shard import all_gather_into
 
-        every = counts.new_empty((parts * e,))
-        all_gather_into(every, counts.contiguous(), group=group)
-        every = every.view(parts, e)
-        pos_in_e = pos_in_e + every[:me].sum(dim=0).index_select(0, flat_e)
-        counts, t_all = every.sum(dim=0), t * parts
-    if cap is None:
-        cap = capacity(cfg, t_all)
-    keep = pos_in_e < cap
-    slot = torch.where(keep, pos_in_e, cap)  # overflow -> the scratch row
-    rows = flat_e * (cap + 1) + slot  # row of the flattened (E * (C+1), D) buffer
+            every = counts.new_empty((parts * e,))
+            all_gather_into(every, counts.contiguous(), group=group)
+            every = every.view(parts, e)
+            pos_in_e = pos_in_e + every[:me].sum(dim=0).index_select(0, flat_e)
+            counts, t_all = every.sum(dim=0), t * parts
+        if cap is None:
+            cap = capacity(cfg, t_all)
+        sp.set(rows=e * (cap + 1))
+        keep = pos_in_e < cap
+        slot = torch.where(keep, pos_in_e, cap)  # overflow -> the scratch row
+        rows = flat_e * (cap + 1) + slot  # row of the flattened (E * (C+1), D) buffer
 
-    # scatter the token copies into the expert buffers.  Each (expert,
-    # slot) pair is unique apart from the scratch row, which only ever
-    # receives zeros (the dropped copies times keep = 0), so the sum is
-    # exact in any order: the atomics on the card give the same bits as
-    # the reference's scatter-add
-    xrep = tokens[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e * (cap + 1), d), dtype=x.dtype, device=dev)
-    buf.index_add_(0, rows, xrep * keep[:, None].to(x.dtype))
-    buf = buf.view(e, cap + 1, d)
+        # scatter the token copies into the expert buffers.  Each (expert,
+        # slot) pair is unique apart from the scratch row, which only ever
+        # receives zeros (the dropped copies times keep = 0), so the sum is
+        # exact in any order: the atomics on the card give the same bits as
+        # the reference's scatter-add
+        xrep = tokens[:, None, :].expand(t, k, d).reshape(t * k, d)
+        buf = torch.zeros((e * (cap + 1), d), dtype=x.dtype, device=dev)
+        buf.index_add_(0, rows, xrep * keep[:, None].to(x.dtype))
+        buf = buf.view(e, cap + 1, d)
 
     # the batched expert FFN (GLU activations share the gate path)
-    ew = p["experts"]
-    if cfg.activation.endswith("_glu"):
-        h = _act(cfg.activation, torch.bmm(buf, ew["w_gate"])) * torch.bmm(buf, ew["w_up"])
-    else:
-        h = _act(cfg.activation, torch.bmm(buf, ew["w_up"]))
-    out_buf = torch.bmm(h, ew["w_down"]).view(e * (cap + 1), d)
+    with region("moe.experts", after=sp, tokens=t, pairs=t * k, rows=e * (cap + 1)) as sp:
+        ew = p["experts"]
+        if cfg.activation.endswith("_glu"):
+            h = _act(cfg.activation, torch.bmm(buf, ew["w_gate"])) * torch.bmm(buf, ew["w_up"])
+        else:
+            h = _act(cfg.activation, torch.bmm(buf, ew["w_up"]))
+        out_buf = torch.bmm(h, ew["w_down"]).view(e * (cap + 1), d)
 
     # gather back with the gate weights, summed over the k choices
-    y = out_buf.index_select(0, rows)
-    y = y * (top_w.reshape(-1, 1) * keep[:, None]).to(y.dtype)
-    y = y.view(t, k, d).sum(dim=1)
-    if cfg.n_shared_experts:
-        y = y + ffn(cfg, p["shared"], tokens)
+    with region("moe.combine", after=sp, tokens=t, pairs=t * k, rows=e * (cap + 1)):
+        y = out_buf.index_select(0, rows)
+        y = y * (top_w.reshape(-1, 1) * keep[:, None]).to(y.dtype)
+        y = y.view(t, k, d).sum(dim=1)
+        if cfg.n_shared_experts:
+            y = y + ffn(cfg, p["shared"], tokens)
 
-    # Switch-style aux loss: E * sum_e (router mass of e) * (routed share of
-    # e), the share the whole batch's (a rank's mass, averaged over the
-    # data axis with the loss, is the whole batch's)
-    aux = e * torch.sum(gates.mean(dim=0) * counts.float() / (t_all * k))
+        # Switch-style aux loss: E * sum_e (router mass of e) * (routed share of
+        # e), the share the whole batch's (a rank's mass, averaged over the
+        # data axis with the loss, is the whole batch's)
+        aux = e * torch.sum(gates.mean(dim=0) * counts.float() / (t_all * k))
     return y.view(b, s, d), aux
-
 
 def _data_axis():
     """(group, size, this rank's index) of the active mesh's data axis

@@ -12,6 +12,15 @@ records ``serve.prefill``/``serve.decode`` spans and ``serve.ttft``/
 ``serve.admit_group`` instants, and the training loop a ``train.step``
 span per step.  Tracing is off unless ``enable_trace()`` (or
 ``PPYTHON_TRACE=1``) turns it on.
+
+``repro_torch.obs.device_spans`` (it imports torch, so this package
+does not import it) records regions into the same buffer: the MoE
+layer's ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` and the
+engine's ``engine.sample`` and ``engine.admit``.  Inside an engine step
+on the card each region also carries its device time (``device_ms``)
+and its device start on the host clock (``device_start``), from CUDA
+events the engine resolves once the step's ``serve.*`` span has closed
+at its host copy.
 """
 
 from . import metrics, trace

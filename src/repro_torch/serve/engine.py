@@ -36,7 +36,15 @@ With tracing on (``repro_torch.obs.trace``), each admission records a
 ``serve.admit_group`` instant, a ``serve.prefill`` span and a
 ``serve.ttft`` instant per request, and each decode step a
 ``serve.decode`` span, with the JAX engine's names and fields; off, each
-costs one attribute check.
+costs one attribute check.  Inside those spans the port records two
+regions of its own (``obs.device_spans``): ``engine.sample`` around each
+``_sample`` call (``sampled``: the rows drawn at a temperature) and
+``engine.admit`` around an admission's scatter into the carry (``rows``,
+``tokens``: the real prompt tokens admitted, ``positions``: slots x
+``prefill_pad`` prefilled).  On the card each step is anchored at its
+start and resolved once its ``serve.*`` span has closed at the host
+copy, so these regions and ``moe_ffn``'s carry their device time on the
+host clock.
 
 Bitwise scheduler-equivalence: every per-slot computation is
 row-independent at fixed shapes (per-row positions, the causal mask over
@@ -71,6 +79,7 @@ from ..models.model import (
     model_forward,
     prefill_forward,
 )
+from ..obs import device_spans as _ds
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .scheduler import Request, Scheduler
@@ -86,6 +95,8 @@ _COUNTER_NAMES = (
     "slot_steps_total",
     "slot_steps_active",
     "tokens_generated",
+    "prefill_tokens",
+    "prefill_positions",
 )
 
 
@@ -302,6 +313,8 @@ class ContinuousBatchingEngine:
         """Bulk prefill of every row (this rank's), then scatter the
         admitted rows into the carry in place.  Returns the (2, slots)
         int32 host copy [first token, done]."""
+        if _trace.enabled:
+            _ds.anchor(self.device)
         c = self._carry
         dev = self.device
         mine = slice(self._lo, self._lo + self._n)
@@ -311,38 +324,45 @@ class ContinuousBatchingEngine:
             logits, pstate = self._prefill(
                 self.params, {"tokens": torch.from_numpy(ptoks[mine]).to(dev),
                               "lengths": lengths})
-        first = _sample(logits, local, self._temps, self._gens)
+        first = (self._sample_traced(logits, local) if _trace.enabled
+                 else _sample(logits, local, self._temps, self._gens))
         budget_t = torch.from_numpy(budget[mine]).to(dev)
         eos_t = torch.from_numpy(eos[mine]).to(dev)
         done0 = (first == eos_t) | (budget_t <= 1)
         packed = torch.stack([first, done0.to(torch.int32)])
         rows = [(s, int(plens[s]), int(budget[s]), int(eos[s])) for s in slots_in]
-        if not local:
-            return self._pull(packed, rows)
-        idx = torch.tensor(local, dtype=torch.int64, device=dev)
-        for name, new in pstate.items():
-            live = c["state"][name]
-            bd = self._bdims[name]
-            # KV caches: the prefill's seq length is below max_seq, so the
-            # rows land at the front of the admitted slots' caches
-            region = live[tuple(slice(0, n) for n in new.shape)]
-            region.index_copy_(bd, idx, new.index_select(bd, idx).to(live.dtype))
-        c["tokens"][idx, 0] = first[idx]
-        c["pos"][idx] = lengths[idx].long()
-        c["active"][idx] = ~done0[idx]
-        c["gen"][idx] = 1
-        c["budget"][idx] = budget_t[idx]
-        c["eos"][idx] = eos_t[idx]
+        if local:
+            with (_ds.region("engine.admit", rows=len(rows), tokens=sum(r[1] for r in rows),
+                             positions=self.slots * self.prefill_pad)
+                  if _trace.enabled else _trace._NOOP):
+                idx = torch.tensor(local, dtype=torch.int64, device=dev)
+                for name, new in pstate.items():
+                    live = c["state"][name]
+                    bd = self._bdims[name]
+                    # KV caches: the prefill's seq length is below max_seq, so
+                    # the rows land at the front of the admitted slots' caches
+                    region = live[tuple(slice(0, n) for n in new.shape)]
+                    region.index_copy_(bd, idx, new.index_select(bd, idx).to(live.dtype))
+                c["tokens"][idx, 0] = first[idx]
+                c["pos"][idx] = lengths[idx].long()
+                c["active"][idx] = ~done0[idx]
+                c["gen"][idx] = 1
+                c["budget"][idx] = budget_t[idx]
+                c["eos"][idx] = eos_t[idx]
         return self._pull(packed, rows)
 
     def _decode_step(self, rows: list[int]):
         """One batched decode step over every slot (this rank's).  Returns
         the (3, slots) int32 host copy [token, was active, done]."""
+        if _trace.enabled:
+            _ds.anchor(self.device)
         c = self._carry
         with self._on_mesh():
             logits, _ = decode_step(self.cfg, self.params, c["state"], c["tokens"],
                                     c["pos"], moe_cap=self._moe_cap)
-        tok = _sample(logits, self._local(rows), self._temps, self._gens)
+        local = self._local(rows)
+        tok = (self._sample_traced(logits, local) if _trace.enabled
+               else _sample(logits, local, self._temps, self._gens))
         was = c["active"]
         gen = c["gen"] + was
         pos = c["pos"] + was
@@ -353,6 +373,12 @@ class ContinuousBatchingEngine:
         c["gen"].copy_(gen)
         c["active"].copy_(was & ~done)
         return self._pull(packed, rows)
+
+    def _sample_traced(self, logits: torch.Tensor, rows: list[int]) -> torch.Tensor:
+        """``_sample`` over this rank's ``rows`` in an ``engine.sample``
+        region (tracing on)."""
+        with _ds.region("engine.sample", sampled=sum(self._temps[r] > 0.0 for r in rows)):
+            return _sample(logits, rows, self._temps, self._gens)
 
     # -- host control loop -------------------------------------------------
 
@@ -406,7 +432,11 @@ class ContinuousBatchingEngine:
             packed = self._admit_step([s for s, _ in plan], ptoks, plens, budget, eos)
         first, done0 = packed[0], packed[1].astype(bool)
         t1 = self.clock()
+        if _trace.enabled:
+            _ds.resolve()  # after the span, which ends at the host copy
         self._counters["prefill_steps"].inc()
+        self._counters["prefill_tokens"].inc(sum(len(req.prompt) for _, req in plan))
+        self._counters["prefill_positions"].inc(B * P)
         for s, req in plan:
             self.sched.admit(s, req)
             req.admit_t = t0
@@ -428,6 +458,8 @@ class ContinuousBatchingEngine:
             tok, was, done = packed[0], packed[1].astype(bool), packed[2].astype(bool)
             sp.set(active=int(was.sum()))
         t1 = self.clock()
+        if _trace.enabled:
+            _ds.resolve()  # after the span, which ends at the host copy
         n_active = 0
         for s in range(self.slots):
             if not was[s]:
@@ -485,6 +517,9 @@ class ContinuousBatchingEngine:
         stats.update({k: c.value for k, c in self._counters.items()})
         total = max(1, stats["slot_steps_total"])
         stats["padded_slot_waste"] = 1.0 - stats["slot_steps_active"] / total
+        # the admissions' prefilled positions that held no prompt token
+        stats["prefill_pad_waste"] = 1.0 - (stats["prefill_tokens"]
+                                            / max(1, stats["prefill_positions"]))
         for name, h in (("ttft", self._ttft), ("tpot", self._tpot)):
             xs = h.samples()
             if xs:

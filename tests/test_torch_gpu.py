@@ -439,6 +439,86 @@ def test_moe_decode_step_makes_no_host_sync(cuda):
     assert logits.shape == (b, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
 
 
+@pytest.fixture
+def traced():
+    from repro_torch.obs import trace
+
+    trace.enable_trace()
+    trace.reset_trace()
+    try:
+        yield trace
+    finally:
+        trace.disable_trace()
+        trace.reset_trace()
+
+
+def test_moe_decode_step_with_regions_makes_no_host_sync(cuda, traced):
+    """With tracing on, an anchored MoE decode step records its regions'
+    CUDA events and still never waits for the card; resolving them after
+    the step's work has landed times every region."""
+    from repro_torch.obs import device_spans as ds
+
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 4, dtype=torch.float32, device=cuda)
+    b = 4
+    state = init_decode_state(cfg, b, 16, dtype=torch.float32, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (b, 1), device=cuda)
+    pos = torch.arange(b, device=cuda)
+    decode_step(cfg, params, state, tokens, pos, moe_cap=b * cfg.moe_top_k)  # warm-up
+    torch.cuda.synchronize()
+    traced.reset_trace()
+    ds.anchor(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = decode_step(cfg, params, state, tokens, pos + 1,
+                                moe_cap=b * cfg.moe_top_k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert traced.events() == []  # held back until resolve()
+    logits.cpu()  # the engine's host copy
+    ds.resolve()
+    got = traced.events()
+    assert [e[0] for e in got] == ["moe.dispatch", "moe.experts", "moe.combine"] * cfg.n_layers
+    assert all(e[4]["device_ms"] > 0 for e in got)
+
+
+def test_engine_regions_carry_device_time_in_program_order(cuda, traced, monkeypatch):
+    """Every region of a MoE engine's steps on the card carries
+    ``device_ms`` > 0 and a ``device_start`` at or after its step's
+    anchor; within a step the regions' device intervals come in program
+    order and do not overlap (to the events' 2 µs of rounding)."""
+    from repro_torch.obs import device_spans as ds
+    from repro_torch.serve import ContinuousBatchingEngine
+
+    anchors = []
+    real = ds.anchor
+
+    def spy(device):
+        real(device)
+        anchors.append(ds._local.step.host)
+
+    monkeypatch.setattr(ds, "anchor", spy)
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 6, dtype=torch.float32, device=cuda)
+    eng = ContinuousBatchingEngine(cfg, params, slots=2, max_seq=32, prefill_pad=8,
+                                   state_dtype=torch.float32, device=cuda)
+    for i in range(3):
+        eng.submit([1 + i, 2, 3], max_new=4, temperature=0.7 if i == 1 else 0.0, seed=i)
+    eng.run()
+    events = traced.events()
+    steps = [e for e in events if e[0] in ("serve.prefill", "serve.decode")]
+    assert len(steps) == len(anchors) > 2
+    for (name, _, t0, dur, _), host0 in zip(steps, anchors):
+        held = [e for e in events if e[0].startswith(("moe.", "engine."))
+                and t0 <= e[2] <= t0 + dur]
+        assert len(held) == 3 * cfg.n_layers + (2 if name == "serve.prefill" else 1)
+        starts = [e[4]["device_start"] for e in held]
+        assert all(e[4]["device_ms"] > 0 for e in held)
+        assert host0 <= starts[0]
+        for a, b in zip(held, held[1:]):
+            assert a[4]["device_start"] + 1e-3 * a[4]["device_ms"] <= b[4]["device_start"] + 2e-6
+
+
 def test_moe_prefill_and_decode_launch_the_kernels(cuda):
     """A MoE prefill launches rmsnorm 2L+1 times and flash L times, a
     decode step rmsnorm 2L+1 times and no flash; nothing else."""

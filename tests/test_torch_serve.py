@@ -245,9 +245,16 @@ def _traced(trace_mod, run):
     return events
 
 
+# The declared difference: the port's engine also records these regions
+# (``repro_torch.obs.device_spans``) inside its ``serve.*`` spans; the
+# JAX engine has no counterpart (gemma has no MoE layer, so no ``moe.*``)
+PORT_ONLY = {"engine.admit", "engine.sample"}
+
+
 def test_engine_spans_equal_the_jax_engines():
     """On the same requests the port's engine records the JAX engine's
-    spans and instants, in the same order, with the same fields."""
+    spans and instants, in the same order, with the same fields, and
+    besides them only the regions ``PORT_ONLY`` declares."""
     arch = "gemma-2b"
     jp, tp = shared_params(jax_config(arch).reduced(), seed=0)
     jeng = JaxEngine(jax_config(arch).reduced(), jp, state_dtype=jnp.float32, **_GEO)
@@ -256,4 +263,5 @@ def test_engine_spans_equal_the_jax_engines():
     got = _traced(port_trace, lambda: _drive(peng))
     names = {n for n, _, _ in want}
     assert names == {"serve.admit_group", "serve.prefill", "serve.ttft", "serve.decode"}
-    assert got == want
+    assert [e for e in got if e[0] in names] == want
+    assert {n for n, _, _ in got} - names == PORT_ONLY
