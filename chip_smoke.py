@@ -24,9 +24,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    S = 4096 with the time phase's tile, and with Gemma-2's logit softcap of
    50.0 at gemma-2b's (4, 128, 8/1, 256) and (1, 4096, 8/1, 256), its
    queries scaled by 16 so that the cap bites; the triad at lengths 1 to 2^26, three scalars, and views off a
-   16-byte boundary).
+   16-byte boundary; the grouped MoE kernels (CUDA C++) at deepseek-moe-16b's
+   widths at an admission of 6144 tokens and a decode step of 48 in
+   bf16, a decode step in fp32, the serve_moe phase's shapes, and with
+   every pair routed to one expert or half the experts empty).
 4. time: each kernel, its plain version and the nearest single PyTorch
-   call (none computes the SSD scan), at the main paths' shapes, beside
+   call (none computes the SSD scan; for the grouped MoE kernels
+   ``torch.bmm`` over the padded buffers they replace, at the four
+   served shapes), at the main paths' shapes, beside
    the least time the card needs; rmsnorm at the six shapes the serve
    paths run (the sixth fp32: rwkv6's ``ln_x`` at decode), each beside
    an empty kernel of its grid and block (``floor_ms``) and with its
@@ -61,10 +66,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    rmsnorm 127 times.
 8. serve_moe: the same for full-width deepseek-moe-16b (28 layers of
    attention and 64 routed experts, top 6, plus 2 shared): every prefill
-   launches flash 28 times, every step rmsnorm 57 times; the expert
-   products are ``torch.bmm`` at the drop-free capacities (no Pallas
-   kernel in the reference), and the profile gives their device time a
-   decode step beside the time to read every expert's weights once.
+   launches flash 28 times, every step rmsnorm 57 times and the grouped
+   MoE kernels 56 times (the expert products at the drop-free
+   capacities; no Pallas kernel in the reference), and the profile gives
+   their device time a decode step beside the time to read every
+   expert's weights once.
 9. serve_ssm: the same for full-width rwkv6-1.6b (24 RWKV-6 layers,
    attention-free): every prefill and decode step launches rmsnorm 73
    times (ln1, ln2 and the time mix's ``ln_x`` a layer, fp32 at decode,
@@ -289,6 +295,12 @@ KERNELS = {
         "source": "src/repro_torch/csrc/stream_triad.cu",
         "replaces": "src/repro/kernels/stream_triad.py:25",
         "time_row": "hpcc_fp32", "paths": ("stream",),
+    },
+    "moe_grouped": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_grouped.cu",
+        "replaces": None,  # the reference's expert products are einsums (models/moe.py)
+        "time_row": "admission", "paths": ("serve_moe",),
     },
 }
 
@@ -582,6 +594,8 @@ def phase_check() -> dict:
                                  "max_err_in_eps_of_terms": units})
                     if dtype == torch.float32 and n == 2**20 and layout == "aligned":
                         errs["stream_triad"] = max(errs["stream_triad"], err)
+    moe_rows, errs["moe_grouped"] = check_moe_grouped()
+    rows += moe_rows
     torch.cuda.synchronize()
     emit("check", tolerance={str(k): v for k, v in KERNEL_TOL.items()},
          ssd_tolerance={str(k): v for k, v in SSD_TOL.items()},
@@ -621,6 +635,139 @@ def rms_rows_alone(rn, gen, d: int, dtype) -> dict:
                 raise AssertionError(f"rmsnorm d {d} {dtype}: row {i} alone differs from M = {m}")
     return {"rows_alone": list(RMS_ALONE), "batches": [4, 7, 512], "bitwise_equal": True,
             "max_abs_err": max_err(full, rn.rmsnorm_plain(x, w), KERNEL_TOL[dtype])}
+
+
+# The grouped MoE kernels at deepseek-moe-16b's widths (64 experts of
+# 2048 x 1408, top 6): (label, tokens, capacity) of a chipbench admission
+# (48 x 128 or 24 x 256 tokens) and decode step (48 slots), and of the
+# serve_moe phase's admission (4 x 128) and decode step (4 slots)
+MOE_GROUPED_SHAPES = {"admission": (6144, 36864), "decode": (48, 288),
+                      "serve_moe_admission": (512, 3072), "serve_moe_decode": (4, 24)}
+
+
+def _moe_grouped_inputs(gen, t: int, dtype, routing: str = "random", ws=None) -> tuple:
+    """Tokens (T, D), the sorted pairs (order, bounds) of a routing --
+    ``random`` (top 6 of 64 distinct), ``one_expert`` (every pair to
+    expert 5), ``half_empty`` (the even experts only) -- and the expert
+    stacks (scaled so products stay near 1; ``ws`` reuses them)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-moe-16b")
+    e, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff_expert, cfg.moe_top_k
+    if routing == "random":
+        flat = torch.rand(t, e, generator=gen, device="cuda").argsort(dim=1)[:, :k].reshape(-1)
+    elif routing == "one_expert":
+        flat = torch.full((t * k,), 5, device="cuda")
+    else:
+        flat = torch.randint(0, e // 2, (t * k,), generator=gen, device="cuda") * 2
+    order = torch.argsort(flat, stable=True)
+    bounds = torch.searchsorted(flat[order], torch.arange(e + 1, device="cuda"))
+    if ws is None:
+        ws = tuple((torch.randn(*shape, generator=gen, device="cuda") / shape[1] ** 0.5).to(dtype)
+                   for shape in ((e, d, f), (e, d, f), (e, f, d)))
+    tokens = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    return tokens, order, bounds, ws
+
+
+def check_moe_grouped() -> tuple[list, float]:
+    """The grouped MoE kernels against their plain version (the padded
+    buffers' ``torch.bmm``, which rounds g, u, SiLU and h where the kernels
+    round h once) at the served shapes in bf16, a decode step in fp32, and
+    skewed routings: every pair to one expert, half the experts empty.
+    Returns the rows and the bf16 admission's max abs error."""
+    from repro_torch.kernels import moe_grouped as mg
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows, worst = [], 0.0
+    for label, dtype, routing in (
+            ("admission", torch.bfloat16, "random"), ("decode", torch.bfloat16, "random"),
+            ("decode", torch.float32, "random"), ("serve_moe_admission", torch.bfloat16, "random"),
+            ("serve_moe_decode", torch.bfloat16, "random"),
+            ("admission", torch.bfloat16, "one_expert"), ("decode", torch.bfloat16, "one_expert"),
+            ("admission", torch.bfloat16, "half_empty"), ("decode", torch.bfloat16, "half_empty")):
+        t, cap = MOE_GROUPED_SHAPES[label]
+        tokens, order, bounds, ws = _moe_grouped_inputs(gen, t, dtype, routing)
+        with torch.no_grad():
+            got = mg.expert_glu(tokens, order, bounds, *ws, 6, cap)
+            want = mg.expert_glu_plain(tokens, order, bounds, *ws, 6, cap)
+        err = max_err(got, want, KERNEL_TOL[dtype])
+        rows.append({"kernel": "moe_grouped", "at": label, "tokens": t, "cap": cap,
+                     "routing": routing, "dtype": str(dtype), "max_abs_err": err,
+                     "max_abs_want": want.float().abs().max().item(),
+                     "block_m": mg.block_m(cap, 64, dtype)})
+        if label == "admission" and routing == "random":
+            worst = err
+        del got, want, tokens, ws
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def _events_ms(fn, calls: int = 3) -> float:
+    """Device time of one ``fn()`` by events around ``calls`` calls after
+    one warm-up (for calls too large to hold several of in a graph)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_moe_grouped() -> dict:
+    """The grouped MoE kernels' rows of the time phase, by label, bf16:
+    device times of the kernels (both, one call) on rotating token and
+    routing sets, their plain version (fill, scatter, the padded products,
+    gather) and, as the yardstick, ``torch.bmm`` over the padded (E, cap +
+    1, D) buffers alone (the three products and the SiLU GLU, the buffer
+    already filled: what the layer ran before the kernels); host time a
+    call; the bound (``moe_grouped.cost``: operations at 989 TFLOP/s, or
+    the used experts' weights at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_grouped as mg
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    ws = None
+    for label, (t, cap) in MOE_GROUPED_SHAPES.items():
+        n_sets = 2 if t > 1000 else 8
+        sets = []
+        for _ in range(n_sets):
+            tokens, order, bounds, ws = _moe_grouped_inputs(gen, t, torch.bfloat16, ws=ws)
+            sets.append((tokens, order, bounds))
+        used = int((sets[0][2][1:] > sets[0][2][:-1]).sum())
+        cost = mg.cost(t, t * 6, used, 2048, 1408, torch.bfloat16)
+
+        def kernel(tokens, order, bounds, cap=cap):
+            return mg.expert_glu(tokens, order, bounds, *ws, 6, cap)
+
+        def plain(tokens=sets[0][0], order=sets[0][1], bounds=sets[0][2], cap=cap):
+            return mg.expert_glu_plain(tokens, order, bounds, *ws, 6, cap)
+
+        buf = torch.randn(64, cap + 1, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def library(buf=buf):
+            h = F.silu(torch.bmm(buf, ws[0])) * torch.bmm(buf, ws[1])
+            return torch.bmm(h, ws[2])
+
+        with torch.no_grad():
+            row = rows[label] = {
+                "shape": [t, cap], "dtype": "bfloat16", "experts_used": used,
+                "block_m": mg.block_m(cap, 64, torch.bfloat16),
+                "grid_tiles": mg.n_tiles(t * 6, 64, mg.block_m(cap, 64, torch.bfloat16)),
+                "ms": device_ms(kernel, sets),
+                "plain_ms": _events_ms(plain),
+                "library_ms": _events_ms(library),
+                "host_us_per_call": _host_us(kernel, sets),
+                **_bound(cost["bytes"], cost["operations"], BF16_FLOPS),
+            }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        del sets, buf
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _bound(bytes_: float, flops: float, peak: float) -> dict:
@@ -820,6 +967,7 @@ def phase_time(card: dict) -> dict:
                   for label, row in time_flash(gen, moe_gen).items()})
 
     times.update({("ssd_scan", label): row for label, row in time_ssd(gen).items()})
+    times.update({("moe_grouped", label): row for label, row in time_moe_grouped().items()})
 
     # 2^20: the HPCC config's size (and the JAX package's kernel_triad_1M
     # micro-bench), 24 rotating sets as above.  2^26: each array 256 MiB
@@ -859,10 +1007,10 @@ def _device_time(prof, cfg) -> dict:
     launch them report the same device time again): (name, calls, us)
     rows, busy seconds, the same rows for the CPU ops by the device time
     of the kernels each launches itself (``ops``), for a MoE model the
-    calls and us of the expert products, the ``aten::bmm`` calls whose
-    second operand is an (E, D, F) or (E, F, D) expert stack, and for an
-    ssm model those of the weights' widening to fp32, the
-    ``aten::_to_copy`` calls on a layer's matrix."""
+    calls and us of the expert products, the grouped kernels
+    (``moe_gate_up_*kernel``, ``moe_down_*kernel``), and for an ssm model
+    those of the weights' widening to fp32, the ``aten::_to_copy`` calls
+    on a layer's matrix."""
     from torch.autograd import DeviceType
 
     rows, ops = [], []
@@ -873,12 +1021,9 @@ def _device_time(prof, cfg) -> dict:
             ops.append((e.key, e.count, e.self_device_time_total))
     out = {"rows": rows, "ops": ops, "busy_s": sum(r[2] for r in rows) * 1e-6}
     if cfg.family == "moe":
-        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-        bmm = [ev for ev in prof.key_averages(group_by_input_shape=True)
-               if ev.key == "aten::bmm" and len(ev.input_shapes) > 1
-               and list(ev.input_shapes[1]) in ([e, d, f], [e, f, d])]
-        out.update(expert_calls=sum(ev.count for ev in bmm),
-                   expert_us=sum(ev.device_time_total for ev in bmm))
+        grouped = [r for r in rows if re.search(r"moe_(gate_up|down)_\w*kernel\b", r[0])]
+        out.update(expert_calls=sum(r[1] for r in grouped),
+                   expert_us=sum(r[2] for r in grouped))
     if cfg.family == "ssm":
         shapes = _ssm_weight_shapes(cfg)
         widen = [ev for ev in prof.key_averages(group_by_input_shape=True)
@@ -895,15 +1040,15 @@ def _profile_decode(eng, steps: int = 8) -> dict:
     ``steps`` decode steps with every slot live.  Device busy time is the
     sum of the kernels' and copies' own device time; the profiler's host
     cost inflates the wall time, so the idle share is an upper bound.
-    For a MoE model also the expert products' device time (input shapes
-    recorded for it alone); for an ssm model the device time of widening
+    For a MoE model also the expert products' device time (the grouped
+    kernels by name); for an ssm model the device time of widening
     the bf16 weights to fp32 (input shapes recorded for it).  The host
     side of the decode steps: every CPU op's own time, in total and the
     largest."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = eng.cfg
-    shapes = cfg.family in ("moe", "ssm")
+    shapes = cfg.family == "ssm"
     for i in range(eng.slots):
         eng.submit([1 + i, 2 + i, 3 + i], max_new=steps + 4)
     torch.cuda.synchronize()
@@ -959,10 +1104,10 @@ def _profile_decode(eng, steps: int = 8) -> dict:
 
 
 def _counters():
-    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan, stream_triad
+    from repro_torch.kernels import flash_attention, moe_grouped, rmsnorm, ssd_scan, stream_triad
 
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "stream_triad": stream_triad}
+            "stream_triad": stream_triad, "moe_grouped": moe_grouped}
 
 
 def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
@@ -971,17 +1116,20 @@ def expected_launches(cfg, prefill_steps: int, decode_steps: int) -> dict:
     layer's ln and gate norm; two per shared block; a dense or MoE layer's
     ln1 and ln2; an ssm layer's ln1, ln2 and the time mix's ln_x, three),
     flash once per attention block per prefill, the SSD scan once per
-    Mamba2 layer per prefill, the triad never."""
+    Mamba2 layer per prefill, the triad never, the grouped MoE kernels
+    twice per MoE layer at every step (the engine's caps are drop-free)."""
     if cfg.family == "ssm":
         return {"rmsnorm": (3 * cfg.n_layers + 1) * (prefill_steps + decode_steps),
-                "flash_attention": 0, "ssd_scan": 0, "stream_triad": 0}
+                "flash_attention": 0, "ssd_scan": 0, "stream_triad": 0, "moe_grouped": 0}
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.hybrid_attn_every
         return {"rmsnorm": (2 * cfg.n_layers + 2 * groups + 1) * (prefill_steps + decode_steps),
                 "flash_attention": groups * prefill_steps,
-                "ssd_scan": cfg.n_layers * prefill_steps, "stream_triad": 0}
+                "ssd_scan": cfg.n_layers * prefill_steps, "stream_triad": 0, "moe_grouped": 0}
+    moe = 2 * cfg.n_layers if cfg.family == "moe" else 0
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefill_steps + decode_steps),
-            "flash_attention": cfg.n_layers * prefill_steps, "ssd_scan": 0, "stream_triad": 0}
+            "flash_attention": cfg.n_layers * prefill_steps, "ssd_scan": 0, "stream_triad": 0,
+            "moe_grouped": moe * (prefill_steps + decode_steps)}
 
 
 def phase_stream(card: dict, reps: int = 5) -> dict:

@@ -6,7 +6,13 @@ scatter into per-expert buffers (E, C+1, D) whose last row is a scratch
 row for the tokens over capacity, the experts run as batched products
 over every buffer row (``torch.bmm``: the reference's einsums, outside
 any Pallas kernel), and the outputs gather back weighted by the router
-gate.  DeepSeek's shared experts run beside the routed ones through
+gate.  That buffer path serves training: capacity-limited, with drops,
+data-axis offsets and autograd.  Serving's drop-free capacity (every
+pair fits) with no gradient takes the grouped path instead: the sorted
+pairs and their per-expert offsets go to ``kernels.moe_grouped``, whose
+kernels on the card compute only the pairs that exist (no buffer, fill
+or scatter), and whose plain version on the CPU is the buffer path's
+arithmetic.  DeepSeek's shared experts run beside the routed ones through
 ``layers.ffn``.  The reference's sharding hints are dropped: the port's
 body runs on each rank's own tokens.
 
@@ -34,13 +40,15 @@ reference adds ones per routed pair: CUDA ``torch.bincount`` reads its
 input's maximum back to the host.
 
 With tracing on, three regions (``obs.device_spans.region``) cover the
-body, each with ``tokens`` (T), ``pairs`` (T·k) and ``rows`` (E·(C+1),
-the buffer rows computed): ``moe.dispatch`` (route, sort, the buffer's
-fill and scatter), ``moe.experts`` (the three products and the
-activation) and ``moe.combine`` (the weighted gather, the sum over k,
-the shared experts, the aux loss).  Inside an engine step on the card
-they are device-timed; each starts at the event that ends the one
-before it (``after=``), since nothing is queued between them.
+body, each with ``tokens`` (T), ``pairs`` (T·k) and ``rows`` (the pair
+rows computed: the grouped kernels' launched tiles times their rows,
+``moe_grouped.tile_rows``, or the buffers' E·(C+1)): ``moe.dispatch``
+(route, sort; on the buffer path the buffer's fill and scatter),
+``moe.experts`` (the products and the activation; on the grouped path
+the tile schedule too) and ``moe.combine`` (the weighted gather, the
+sum over k, the shared experts, the aux loss).  Inside an engine step
+on the card they are device-timed; each starts at the event that ends
+the one before it (``after=``), since nothing is queued between them.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from __future__ import annotations
 import torch
 
 from ..dist.hints import current_mesh, rows_split
+from ..kernels import moe_grouped
 from ..obs.device_spans import region
 from .config import ModelConfig
 from .layers import _act, ffn, ffn_param_shapes
@@ -90,64 +99,78 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, cap: int | None = None):
     ``cap`` overrides the per-expert capacity; serving passes the
     drop-free ``t * k``, so a token's output depends on the token alone
     and the products' shapes are fixed per engine: what makes greedy
-    rows bitwise independent of their batch companions."""
+    rows bitwise independent of their batch companions.  Where every
+    pair fits (``cap >= t * k``) and no gradient is needed, the pairs go
+    to the grouped kernels (``kernels.moe_grouped``); else to the padded
+    buffers."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.moe_top_k, cfg.n_experts
     dev = x.device
+    ew = p["experts"]
+    grouped = _grouped(cap, t * k, x, ew)
     with region("moe.dispatch", tokens=t, pairs=t * k) as sp:
         tokens = x.reshape(t, d)
         gates, top_w, top_i = route(cfg, p["router"], tokens)
 
-        # slot of each (token, choice) pair in its expert's buffer: its place
-        # in the expert's run of a stable sort of the expert ids
+        # a stable sort of the pairs' expert ids and each expert's run in it
         flat_e = top_i.reshape(-1)  # (T*K,)
         order = torch.argsort(flat_e, stable=True)
         sorted_e = flat_e.index_select(0, order)
         bounds = torch.searchsorted(sorted_e, torch.arange(e + 1, device=dev, dtype=flat_e.dtype))
-        pos_sorted = torch.arange(t * k, device=dev) - bounds.index_select(0, sorted_e)
-        pos_in_e = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
         counts = bounds[1:] - bounds[:-1]  # pairs routed to each expert
         t_all = t
-        if cap is None and (axis := _data_axis()) is not None:
-            group, parts, me = axis
-            from ..dist.shard import all_gather_into
-
-            every = counts.new_empty((parts * e,))
-            all_gather_into(every, counts.contiguous(), group=group)
-            every = every.view(parts, e)
-            pos_in_e = pos_in_e + every[:me].sum(dim=0).index_select(0, flat_e)
-            counts, t_all = every.sum(dim=0), t * parts
-        if cap is None:
-            cap = capacity(cfg, t_all)
-        sp.set(rows=e * (cap + 1))
-        keep = pos_in_e < cap
-        slot = torch.where(keep, pos_in_e, cap)  # overflow -> the scratch row
-        rows = flat_e * (cap + 1) + slot  # row of the flattened (E * (C+1), D) buffer
-
-        # scatter the token copies into the expert buffers.  Each (expert,
-        # slot) pair is unique apart from the scratch row, which only ever
-        # receives zeros (the dropped copies times keep = 0), so the sum is
-        # exact in any order: the atomics on the card give the same bits as
-        # the reference's scatter-add
-        xrep = tokens[:, None, :].expand(t, k, d).reshape(t * k, d)
-        buf = torch.zeros((e * (cap + 1), d), dtype=x.dtype, device=dev)
-        buf.index_add_(0, rows, xrep * keep[:, None].to(x.dtype))
-        buf = buf.view(e, cap + 1, d)
-
-    # the batched expert FFN (GLU activations share the gate path)
-    with region("moe.experts", after=sp, tokens=t, pairs=t * k, rows=e * (cap + 1)) as sp:
-        ew = p["experts"]
-        if cfg.activation.endswith("_glu"):
-            h = _act(cfg.activation, torch.bmm(buf, ew["w_gate"])) * torch.bmm(buf, ew["w_up"])
+        if grouped:
+            n_rows = moe_grouped.tile_rows(t * k, e, cap, x.dtype)
         else:
-            h = _act(cfg.activation, torch.bmm(buf, ew["w_up"]))
-        out_buf = torch.bmm(h, ew["w_down"]).view(e * (cap + 1), d)
+            # slot of each pair in its expert's buffer: its place in the run
+            pos_sorted = torch.arange(t * k, device=dev) - bounds.index_select(0, sorted_e)
+            pos_in_e = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+            if cap is None and (axis := _data_axis()) is not None:
+                group, parts, me = axis
+                from ..dist.shard import all_gather_into
+
+                every = counts.new_empty((parts * e,))
+                all_gather_into(every, counts.contiguous(), group=group)
+                every = every.view(parts, e)
+                pos_in_e = pos_in_e + every[:me].sum(dim=0).index_select(0, flat_e)
+                counts, t_all = every.sum(dim=0), t * parts
+            if cap is None:
+                cap = capacity(cfg, t_all)
+            n_rows = e * (cap + 1)
+            keep = pos_in_e < cap
+            slot = torch.where(keep, pos_in_e, cap)  # overflow -> the scratch row
+            rows = flat_e * (cap + 1) + slot  # row of the flattened (E * (C+1), D) buffer
+
+            # scatter the token copies into the expert buffers.  Each (expert,
+            # slot) pair is unique apart from the scratch row, which only ever
+            # receives zeros (the dropped copies times keep = 0), so the sum is
+            # exact in any order: the atomics on the card give the same bits as
+            # the reference's scatter-add
+            xrep = tokens[:, None, :].expand(t, k, d).reshape(t * k, d)
+            buf = torch.zeros((e * (cap + 1), d), dtype=x.dtype, device=dev)
+            buf.index_add_(0, rows, xrep * keep[:, None].to(x.dtype))
+            buf = buf.view(e, cap + 1, d)
+        sp.set(rows=n_rows)
+
+    # the expert FFN: grouped over the sorted pairs, or batched over the
+    # buffers (GLU activations share the gate path)
+    with region("moe.experts", after=sp, tokens=t, pairs=t * k, rows=n_rows) as sp:
+        if grouped:
+            y = moe_grouped.expert_glu(tokens, order, bounds, ew["w_gate"], ew["w_up"],
+                                       ew["w_down"], k, cap, cfg.activation)
+        else:
+            out_buf = moe_grouped.padded_ffn(
+                buf, ew["w_gate"] if cfg.activation.endswith("_glu") else None, ew["w_up"],
+                ew["w_down"], lambda v: _act(cfg.activation, v)).view(e * (cap + 1), d)
 
     # gather back with the gate weights, summed over the k choices
-    with region("moe.combine", after=sp, tokens=t, pairs=t * k, rows=e * (cap + 1)):
-        y = out_buf.index_select(0, rows)
-        y = y * (top_w.reshape(-1, 1) * keep[:, None]).to(y.dtype)
+    with region("moe.combine", after=sp, tokens=t, pairs=t * k, rows=n_rows):
+        if grouped:
+            y = y * top_w.reshape(-1, 1).to(y.dtype)
+        else:
+            y = out_buf.index_select(0, rows)
+            y = y * (top_w.reshape(-1, 1) * keep[:, None]).to(y.dtype)
         y = y.view(t, k, d).sum(dim=1)
         if cfg.n_shared_experts:
             y = y + ffn(cfg, p["shared"], tokens)
@@ -157,6 +180,17 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, cap: int | None = None):
         # data axis with the loss, is the whole batch's)
         aux = e * torch.sum(gates.mean(dim=0) * counts.float() / (t_all * k))
     return y.view(b, s, d), aux
+
+
+def _grouped(cap: int | None, pairs: int, x: torch.Tensor, experts: dict) -> bool:
+    """Whether a call takes the grouped kernels: every pair fits its
+    expert (serving's drop-free capacity) and no gradient is needed.
+    Training (``cap`` None: capacity-limited, drops, data-axis offsets,
+    autograd) keeps the padded buffers."""
+    if cap is None or cap < pairs:
+        return False
+    return not (torch.is_grad_enabled()
+                and (x.requires_grad or any(w.requires_grad for w in experts.values())))
 
 def _data_axis():
     """(group, size, this rank's index) of the active mesh's data axis

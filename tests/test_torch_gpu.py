@@ -19,10 +19,14 @@ the FMA once in fp32 (at bf16 once more, to bf16), the plain version
 s * c and then the sum in the inputs' dtype, each rounding within one
 unit of roundoff of the terms.  They differ by up to 1.5 eps at fp32
 (4 eps is 8/3 of that) and 3 eps at bf16 (4/3 of it), and the result
-itself can cancel to near 0.  The MoE path runs no kernel of its own
-(its expert products are ``torch.bmm``); on the card it is held to its
+itself can cancel to near 0.  The MoE layer's grouped expert kernels
+(``moe_grouped``) are held to their plain version (the padded buffers'
+``torch.bmm``) at deepseek-moe-16b's widths, with the same tolerances:
+the plain version rounds the gate and up products, SiLU and h to bf16
+where the kernels round h once.  On the card the MoE path is held to its
 CPU run at fp32 with the fp32 tolerance, shows no host sync in a decode
-step, and launches rmsnorm and flash where the model says.  A train step
+step, and launches rmsnorm, flash and the grouped kernels where the
+model says.  A train step
 (remat on, so the backward recomputes each layer on autograd's device
 thread) runs the kernels' plain versions: it is held to the same step on
 the CPU (loss and grad norm to 1e-4 relative; parameters as
@@ -38,6 +42,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_grouped as mg  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import stream_triad as st  # noqa: E402
@@ -394,12 +399,24 @@ def test_moe_ffn_on_the_card_matches_the_cpu(cuda, cap, monkeypatch):
                                atol=TOL[torch.float32])
 
 
+# (tokens in a call, capacity): a decode step of 4 slots (16-row tiles)
+# and an admission-sized call whose cap gives the 128-row tiles
+COMPANIONS = {"decode": (4, 4 * 6), "admission": (1024, 8192)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_moe_rows_do_not_depend_on_their_companions(cuda, dtype):
+@pytest.mark.parametrize("tile", ["decode", "admission"])
+def test_moe_rows_do_not_depend_on_their_companions(cuda, dtype, tile):
     """At a fixed capacity a token's output bits are the same whatever
-    tokens share its step and whichever buffer rows it lands in: deepseek's
-    decode widths (64 experts of 2048 x 1408, top 6, 4 slots, cap 24)."""
+    tokens share its step and whichever rows of the grouped kernels'
+    tiles it lands in: deepseek's widths (64 experts of 2048 x 1408, top
+    6), at a decode step's tile and at an admission's (bf16; fp32 stops at
+    64 rows)."""
     cfg = get_config("deepseek-moe-16b")
+    n, cap = COMPANIONS[tile]
+    assert cap >= n * cfg.moe_top_k
+    assert mg.block_m(cap, cfg.n_experts, dtype) == (16 if tile == "decode" else
+                                                     128 if dtype == torch.bfloat16 else 64)
     g = torch.Generator(device=cuda).manual_seed(10)
     d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
 
@@ -409,14 +426,17 @@ def test_moe_rows_do_not_depend_on_their_companions(cuda, dtype):
     p = {"router": w(d, e), "experts": {"w_gate": w(e, d, f), "w_up": w(e, d, f),
                                         "w_down": w(e, f, d)},
          "shared": {"w_gate": w(d, 2 * f), "w_up": w(d, 2 * f), "w_down": w(2 * f, d)}}
-    cap = 4 * cfg.moe_top_k
-    x = torch.randn(8, 1, d, generator=g, device=cuda).to(dtype)
-    y = moe.moe_ffn(cfg, p, x[:4], cap=cap)[0]
-    for rows in ([4, 5, 0, 6], [0, 7, 7, 7], [3, 2, 1, 0]):
+    x = torch.randn(2 * n, 1, d, generator=g, device=cuda).to(dtype)
+    y = moe.moe_ffn(cfg, p, x[:n], cap=cap)[0]
+    q = n // 4
+    mixes = ([4, 5, 0, 6], [0, 7, 7, 7], [3, 2, 1, 0]) if n == 4 else (
+        [*range(n, n + q), *range(q), *range(2 * n - q, 2 * n), *range(3 * q, n)],
+        [*range(n - 1, -1, -1)], [*range(n // 2, n), *range(n + 7, n + 7 + n // 2)])
+    for rows in mixes:
         other = moe.moe_ffn(cfg, p, x[rows], cap=cap)[0]
         for i, r in enumerate(rows):
-            if r < 4:
-                assert torch.equal(other[i], y[r]), (rows, i)
+            if r < n:
+                assert torch.equal(other[i], y[r]), (rows[:8], i)
 
 
 def test_moe_decode_step_makes_no_host_sync(cuda):
@@ -534,6 +554,88 @@ def test_moe_prefill_and_decode_launch_the_kernels(cuda):
     before = [m.launches for m in mods]
     decode_step(cfg, params, pstate, tokens[:, :1], lengths - 1, moe_cap=b * cfg.moe_top_k)
     assert [m.launches - b0 for m, b0 in zip(mods, before)] == [2 * n + 1, 0, 0, 0]
+
+
+def test_moe_prefill_and_decode_launch_the_grouped_kernels(cuda):
+    """A MoE prefill and a decode step at their drop-free caps each launch
+    the grouped kernels twice a layer (gate/up and down)."""
+    cfg = get_config("deepseek-moe-16b").reduced()
+    params = init_params(cfg, 5, dtype=torch.float32, device=cuda)
+    b, s, n = 2, 8, cfg.n_layers
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=cuda)
+    lengths = torch.tensor([s, 5], device=cuda)
+    before = mg.launches
+    _, pstate = prefill_forward(cfg, params, tokens, lengths, state_dtype=torch.float32)
+    assert mg.launches == before + 2 * n
+    decode_step(cfg, params, pstate, tokens[:, :1], lengths - 1, moe_cap=b * cfg.moe_top_k)
+    assert mg.launches == before + 4 * n
+
+
+DEEPSEEK = dict(e=64, d=2048, f=1408, k=6)
+
+
+def _grouped_inputs(g, t, dtype, routing):
+    """Tokens, the sorted pairs of a routing and deepseek-moe-16b's expert
+    stacks (scaled so products stay near 1)."""
+    e, d, f, k = (DEEPSEEK[key] for key in "edfk")
+    dev = g.device
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) / shape[-2] ** 0.5).to(dtype)
+
+    if routing == "random":  # k distinct experts a token
+        flat = torch.rand(t, e, generator=g, device=dev).argsort(dim=1)[:, :k].reshape(-1)
+    elif routing == "one_expert":
+        flat = torch.full((t * k,), 5, device=dev)
+    else:  # "half_empty": only the even experts
+        flat = torch.randint(0, e // 2, (t * k,), generator=g, device=dev) * 2
+    order = torch.argsort(flat, stable=True)
+    bounds = torch.searchsorted(flat[order], torch.arange(e + 1, device=dev))
+    tokens = torch.randn(t, d, generator=g, device=dev).to(dtype)
+    return tokens, order, bounds, (w(e, d, f), w(e, d, f), w(e, f, d))
+
+
+@pytest.mark.parametrize("t,dtype,routing", [
+    (6144, torch.bfloat16, "random"),  # an admission: 48 x 128 tokens
+    (48, torch.bfloat16, "random"),  # a decode step of 48 slots
+    (48, torch.float32, "random"),
+    (48, torch.bfloat16, "one_expert"),
+    (1024, torch.bfloat16, "one_expert"),
+    (48, torch.bfloat16, "half_empty"),
+    (6144, torch.bfloat16, "half_empty"),
+    (256, torch.bfloat16, "random"),  # 32-row tiles
+    (256, torch.float32, "random"),
+    (512, torch.bfloat16, "random"),  # 64-row tiles
+], ids=lambda v: str(v).removeprefix("torch."))
+def test_moe_grouped_kernels_match_plain(cuda, t, dtype, routing):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    tokens, order, bounds, ws = _grouped_inputs(g, t, dtype, routing)
+    cap = t * DEEPSEEK["k"]
+    assert mg.block_m(cap, DEEPSEEK["e"], dtype) == {48: 16, 256: 32, 512: 64}.get(
+        t, 128 if dtype == torch.bfloat16 else 64)
+    before = mg.launches
+    with torch.no_grad():
+        got = mg.expert_glu(tokens, order, bounds, *ws, DEEPSEEK["k"], cap)
+        assert mg.launches == before + 2
+        want = mg.expert_glu_plain(tokens, order, bounds, *ws, DEEPSEEK["k"], cap)
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_moe_grouped_wrapper_refuses_grad_and_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    tokens, order, bounds, ws = _grouped_inputs(g, 8, torch.bfloat16, "random")
+    k = DEEPSEEK["k"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        mg.expert_glu(tokens.clone().requires_grad_(), order, bounds, *ws, k, 8 * k)
+    with pytest.raises(ValueError):  # more pairs than the capacity
+        mg.expert_glu(tokens, order, bounds, *ws, k, 8 * k - 1)
+    with pytest.raises(ValueError):  # a strided stack
+        mg.expert_glu(tokens, order, bounds, ws[0], ws[1].transpose(1, 2).contiguous()
+                      .transpose(1, 2), ws[2], k, 8 * k)
+    with pytest.raises(ValueError):
+        mg.expert_glu(tokens.half(), order, bounds, *(w.half() for w in ws), k, 8 * k)
+    with pytest.raises(ValueError):
+        mg.expert_glu(tokens, order.cpu(), bounds, *ws, k, 8 * k)
 
 
 def test_last_position_prefill_step_on_the_card_matches_the_cpu(cuda, monkeypatch):

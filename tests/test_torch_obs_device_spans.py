@@ -151,8 +151,11 @@ def test_each_step_records_every_layers_regions_in_its_span(traced, arch):
         assert [r[0] for r in layers] == list(PARTS) * cfg.n_layers
         t, cap = (slots * pad, slots * pad * k) if span[0] == "serve.prefill" else (slots,
                                                                                    slots * k)
+        # drop-free, so the grouped kernels' launched rows: ceil(T·k / 16) + E
+        # tiles of 16 rows (cap / E is at most 16 pairs an expert here)
+        assert cap // e <= 16
         for r in layers:
-            assert r[4] == {"tokens": t, "pairs": t * k, "rows": e * (cap + 1)}
+            assert r[4] == {"tokens": t, "pairs": t * k, "rows": (-(-t * k // 16) + e) * 16}
         want = ["engine.sample", "engine.admit"] if span[0] == "serve.prefill" else [
             "engine.sample"]
         assert [n for n in names if n.startswith("engine.")] == want
