@@ -5,19 +5,27 @@ token times and the window; ``ctx.config`` the configuration's file;
 ``ctx.cell`` the cell; ``ctx.spans`` the program's spans
 (``repro_torch.obs.trace`` events ``(name, start, dur, attrs)``, host
 clock) in a traced run; ``ctx.profile`` the device trace of the
-profiled steps (``profiling.Trace``) or None.
+profiled steps (``profiling.Trace``) or None; ``ctx.bench_dir`` the
+checkout's benchmark folder, where a reader finds a file by name;
+``ctx.notes`` what the readers say of a metric left out.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
+from .spec import PKG, ROOT
+
 
 class Context:
-    def __init__(self, timeline, config: dict, cell: dict, spans=(), profile=None):
+    def __init__(self, timeline, config: dict, cell: dict, spans=(), profile=None,
+                 bench_dir: Path = ROOT / PKG):
         self.timeline = timeline
         self.config = config
         self.cell = cell
         self.spans = list(spans)
         self.profile = profile
+        self.bench_dir = Path(bench_dir)
         self.notes: list[str] = []
 
     def span_mean_ms(self, name: str) -> float | None:

@@ -1,40 +1,27 @@
 """Useful model FLOPs per token, counted from a configuration file's
-published keys (2 a multiply-add, matrix products only).
-
-A token at a position with ``n`` keys in its context (itself included)
-costs every projection it passes through once: in each MoE layer its
-attention projections, the router, its ``num_experts_per_tok`` routed
-experts and the shared experts (never a capacity row); the LM head.
-Causal attention over the actual context adds 2 H d_head n multiply-adds
-a layer.
+published keys (2 a multiply-add, matrix products only) by its family's
+own file: ``costs/families/<family>.py`` under the checkout's benchmark
+folder, whose ``token_flops(c, n)`` gives the FLOPs of one token with
+``n`` keys in its context.
 """
 
+from __future__ import annotations
 
-def _attn_proj(c: dict) -> int:
-    d, h, kh, dh = c["hidden_size"], c["num_attention_heads"], c["num_key_value_heads"], \
-        c["head_dim"]
-    return d * h * dh + 2 * d * kh * dh + h * dh * d
+import functools
+from pathlib import Path
 
-
-def _attn_ctx(c: dict, n: int) -> int:
-    return 2 * c["num_attention_heads"] * c["head_dim"] * n
+from chipbench.spec import PKG, load_file
 
 
-def moe_matrix_params(c: dict) -> int:
-    """Weights a token multiplies through in one forward, embedding aside."""
-    d, f = c["hidden_size"], c["moe_intermediate_size"]
-    layer = (_attn_proj(c) + d * c["n_routed_experts"]
-             + 3 * d * f * (c["num_experts_per_tok"] + c["n_shared_experts"]))
-    return c["num_hidden_layers"] * layer + d * c["vocab_size"]
+@functools.cache
+def family(name: str, bench_dir: Path):
+    """The count of family ``name``: its file under ``bench_dir`` as a
+    module, or None where it has none."""
+    path = Path(bench_dir) / "costs" / "families" / f"{name}.py"
+    return load_file(path, f"{PKG}_costs_{name}") if path.is_file() else None
 
 
-def token_flops(c: dict, family: str, n: int) -> int:
-    """FLOPs of one token with ``n`` keys in its context."""
-    if family == "moe":
-        return 2 * moe_matrix_params(c) + 2 * c["num_hidden_layers"] * _attn_ctx(c, n)
-    raise ValueError(f"no FLOP count for family {family!r}")
-
-
-def prompt_flops(c: dict, family: str, length: int) -> int:
-    """A prompt's real tokens, each over the keys before it and itself."""
-    return sum(token_flops(c, family, i + 1) for i in range(length))
+def prompt_flops(c: dict, fam, length: int) -> int:
+    """A prompt's real tokens by the count ``fam`` (from ``family``), each
+    over the keys before it and itself."""
+    return sum(fam.token_flops(c, i + 1) for i in range(length))

@@ -156,7 +156,7 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool, device,
     spans = [(e[0], e[2], e[3], e[4]) for e in ptrace.events() if e[1] == "X"]
     ptrace.disable_trace()
     tr = prof.trace(spans) if prof else None
-    ctx = Context(tl, c, cell, spans, tr)
+    ctx = Context(tl, c, cell, spans, tr, bench.dir)
     metrics = _reported(readers, ctx, log)
 
     # the engine's state goes before the reference runs; the weights stay

@@ -9,9 +9,8 @@ from chipbench import regions
 
 def read(ctx):
     tokens = positions = 0
-    for _, held in regions.steps(ctx, "serve.prefill", timed=False):
+    for _, held in regions.steps(ctx, "serve.prefill", ("engine.admit",), timed=False):
         for r in held:
-            if r[0] == "engine.admit":
-                tokens += r[3]["tokens"]
-                positions += r[3]["positions"]
+            tokens += r[3]["tokens"]
+            positions += r[3]["positions"]
     return 100.0 * tokens / positions if positions else None

@@ -1,17 +1,19 @@
-"""Model layers: the share of the expert buffers' rows computed in an
-admission that held a real token copy, in %: over the window's
-``serve.prefill`` steps (profiled ones too: they count, not time), 100
-x the sum over each step's ``moe.experts`` regions of the step's
-``engine.admit`` ``tokens`` times the region's choices a token
-(``pairs`` / ``tokens``), over the sum of the regions' ``rows`` (E x
-(capacity + 1), the rows the products compute)."""
+"""Model layers: the share of the pair rows computed in an admission
+that held a real token copy, in %: over the window's ``serve.prefill``
+steps (profiled ones too: they count, not time), 100 x the sum over
+each step's ``moe.experts`` regions of the step's ``engine.admit``
+``tokens`` times the region's choices a token (``pairs`` / ``tokens``),
+over the sum of the regions' ``rows``: the tile rows the grouped
+kernels launch, or E x (capacity + 1) where the padded expert buffers
+run."""
 
 from chipbench import regions
 
 
 def read(ctx):
     copies = rows = 0
-    for _, held in regions.steps(ctx, "serve.prefill", timed=False):
+    for _, held in regions.steps(ctx, "serve.prefill", ("engine.admit", "moe.experts"),
+                                 timed=False):
         admitted = sum(r[3]["tokens"] for r in held if r[0] == "engine.admit")
         for r in held:
             if r[0] == "moe.experts" and admitted:

@@ -9,7 +9,7 @@ correctness check compared, beside its limit), and the same numbers as
 the last lines of standard error.  Exits non-zero and prints no result
 without a CUDA device, with fewer devices than the cell asks for, or if
 JAX or the JAX package was loaded.  Build and kernel caches stay in
-``build/`` inside the checkout.
+``build/`` inside the checkout.  The process keeps one intra-op thread.
 """
 
 import time
@@ -51,6 +51,10 @@ def main(argv=None) -> int:
 
     import torch
 
+    # one intra-op thread: the served step's host work is this thread's
+    # launches, and a pool of CPU workers only shares the host with it
+    # (moe-chat's runs spread 3.8 % with one, 10 % without: PERF.md)
+    torch.set_num_threads(1)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"chipbench: {args.workload} needs {cell['chips']} CUDA device(s); "

@@ -8,6 +8,7 @@ import io
 import time
 
 import pytest
+from chipbench import regions
 from chipbench.context import Context
 from chipbench.harness import run_cell
 from chipbench.profiling import Trace
@@ -73,6 +74,23 @@ def test_hand_computed_values():
     # 2 real copies a token into 2 x 520 rows an admission
     assert got["moe.expert_row_use"] == pytest.approx(100.0 * (6 + 10) * 2 * 2 / (4 * 520))
     assert got["device.decode_idle_moe_ms"] is None  # no device trace
+
+
+def test_a_reader_collects_the_regions_it_names():
+    # another family's region in every step: the MoE and engine readers
+    # read what they read without it, and a reader that names it finds it
+    spans = _spans()
+    ssd = [("mamba.ssd", s[1] + 0.05, 1e-3, {"device_ms": 7.0 if s[0] == "serve.decode" else 30.0,
+                                              "device_start": s[1] + 0.05})
+           for s in spans if s[0].startswith("serve.")]
+    before = {n: f(_ctx(spans)) for n, f in READ.items()}
+    assert {n: f(_ctx(spans + ssd)) for n, f in READ.items()} == before
+    ctx = _ctx(spans + ssd)
+    assert regions.device_ms_per_step(ctx, "serve.decode", ("mamba.ssd",)) == pytest.approx(7.0)
+    assert regions.device_ms_per_step(ctx, "serve.prefill", ("mamba.ssd",)) == pytest.approx(30.0)
+    assert regions.device_ms_per_step(ctx, "serve.decode", ("mamba.ssd", "moe.experts")) \
+        == pytest.approx(7.0 + 2 * 2.25)
+    assert regions.host_ms_per_step(ctx, "serve.decode", "mamba.ssd") == pytest.approx(1.0)
 
 
 def test_the_profiled_steps_are_left_out_of_times_not_counts():

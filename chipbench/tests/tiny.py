@@ -47,7 +47,7 @@ def make_tiny(root: Path, cell: str, limits: dict | None = None):
     bench = root / "chipbench"
     for sub in ("configs", "traffic", "workloads"):
         (bench / sub).mkdir(parents=True)
-    for sub in ("end_to_end", "metrics", "reference"):
+    for sub in ("end_to_end", "metrics", "reference", "costs"):
         (bench / sub).symlink_to(ROOT / "chipbench" / sub)
     (bench / "configs" / f"{name}.json").write_text(json.dumps(tiny_config(name)))
     mix = json.loads((ROOT / "chipbench" / "traffic" / f"{cell}.json").read_text())
