@@ -27,7 +27,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    16-byte boundary; the grouped MoE kernels (CUDA C++) at deepseek-moe-16b's
    widths at an admission of 6144 tokens and a decode step of 48 in
    bf16, a decode step in fp32, the serve_moe phase's shapes, and with
-   every pair routed to one expert or half the experts empty).
+   every pair routed to one expert or half the experts empty); and, in
+   bf16 at Zamba2-7B's admission of 8 x 3072 positions, flash at
+   (8, 3072, 32/32, 224) with its (224 / 2)^-1/2 scale, the SSD at
+   (8, 3072, 112, 64, 64, 64) with B and C in 2 groups, and rmsnorm at
+   3584 and 7168 and by group, a weight row a group.
 4. time: each kernel, its plain version and the nearest single PyTorch
    call (none computes the SSD scan; for the grouped MoE kernels
    ``torch.bmm`` over the padded buffers they replace, at the four
@@ -596,6 +600,7 @@ def phase_check() -> dict:
                         errs["stream_triad"] = max(errs["stream_triad"], err)
     moe_rows, errs["moe_grouped"] = check_moe_grouped()
     rows += moe_rows
+    rows += check_zamba2_7b()
     torch.cuda.synchronize()
     emit("check", tolerance={str(k): v for k, v in KERNEL_TOL.items()},
          ssd_tolerance={str(k): v for k, v in SSD_TOL.items()},
@@ -700,6 +705,70 @@ def check_moe_grouped() -> tuple[list, float]:
         del got, want, tokens, ws
         torch.cuda.empty_cache()
     return rows, worst
+
+
+# Zamba2-7B-Instruct's admission at 8 slots and prefill_pad 3072
+# (chipbench's hybrid-longprompt): its shared attention (32/32 heads of
+# 224 at the (224 / 2)^-1/2 scale), its SSD (112 heads of 64, B and C in
+# 2 groups of 64, 48 chunks of 64) and its norms (3584 and 7168 wide, and
+# the gated norm by group: 2 rows a position, a weight row each)
+ZAMBA2_FLASH_SHAPE = (8, 3072, 32, 32, 224)  # B, S, H, KH, D
+ZAMBA2_SSD_SHAPE = (8, 3072, 112, 64, 64, 64)  # B, S, H, P, N, chunk
+ZAMBA2_SSD_GROUPS = 2
+ZAMBA2_RMS = ((8 * 3072, 3584, 1), (8 * 3072, 7168, 1), (8 * 3072 * 2, 3584, 2))  # M, D, G
+
+
+def check_zamba2_7b() -> list:
+    """The three kernel forms Zamba2-7B's admission launches, in bf16 at
+    its shapes, against their plain versions: flash at head_dim 224 with
+    its scale (the plain version one prompt at a time, to bound its
+    logits' memory), the SSD with B and C in 2 groups sliced from one
+    conv output as the model passes them (the 48-chunk state carry),
+    and rmsnorm with one weight row or a row a group."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dtype, rows = torch.bfloat16, []
+    b, s, h, kh, d = ZAMBA2_FLASH_SHAPE
+    scale = (d / 2) ** -0.5
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
+               for n in (h, kh, kh))
+    got = fa.flash_attention(q, k, v, scale=scale)
+    err = max(max_err(got[i: i + 1], fa.attention_plain(q[i: i + 1], k[i: i + 1], v[i: i + 1],
+                                                         scale=scale), KERNEL_TOL[dtype])
+              for i in range(b))
+    rows.append({"kernel": "flash_attention", "path": "zamba2-7b",
+                 "shape": list(ZAMBA2_FLASH_SHAPE), "scale": scale, "dtype": str(dtype),
+                 "max_abs_err": err, "tile": fa.tile_config(b, s, h, kh, d)})
+    del q, k, v, got
+    b, s, h, p, n, chunk = ZAMBA2_SSD_SHAPE
+    g, di = ZAMBA2_SSD_GROUPS, h * p
+    xbc = torch.randn(b, s, di + 2 * g * n, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device="cuda") - 1)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    args = (xbc[..., :di].view(b, s, h, p), dt, a_log,
+            xbc[..., di: di + g * n].unflatten(-1, (g, n)),
+            xbc[..., di + g * n:].unflatten(-1, (g, n)))
+    y, state = ss.ssd_scan(*args, chunk)
+    want_y, want_state = ss.ssd_plain(*args, chunk, return_state=True)
+    rows.append({"kernel": "ssd_scan", "path": "zamba2-7b", "shape": list(ZAMBA2_SSD_SHAPE),
+                 "groups": g, "dtype": str(dtype),
+                 "max_abs_err": max_err_scaled(y, want_y, SSD_TOL[dtype]),
+                 "max_abs_err_state": max_err_scaled(state, want_state, SSD_TOL[torch.float32]),
+                 "max_abs_y": want_y.float().abs().max().item(),
+                 "max_abs_state": want_state.abs().max().item()})
+    del xbc, dt, args, y, state, want_y, want_state
+    for m, d, g in ZAMBA2_RMS:
+        x = torch.randn(m, d, generator=gen, device="cuda").to(dtype)
+        w = torch.randn(*((g,) if g > 1 else ()), d, generator=gen, device="cuda") * 0.2
+        err = max_err(rn.rmsnorm(x, w), rn.rmsnorm_plain(x, w), KERNEL_TOL[dtype])
+        rows.append({"kernel": "rmsnorm", "path": "zamba2-7b", "shape": [m, d],
+                     "weight": list(w.shape), "dtype": str(dtype), "max_abs_err": err})
+        del x, w
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _events_ms(fn, calls: int = 3) -> float:

@@ -3,7 +3,8 @@
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention, the
 // Pallas TPU kernel behind src/repro/kernels/ops.py::attention.
 //
-// Computes out = softmax(q k^T / sqrt(D)) v over the natural layouts
+// Computes out = softmax(scale q k^T) v, scale 1 / sqrt(D) unless the
+// caller gives another (Zamba2's shared attention: (D / 2)^-1/2), over the natural layouts
 // q (B, S, H, D) and k, v (B, S, KH, D), optionally with the logits
 // capped (Gemma-2's attn_logit_softcap c: c tanh(logit / c) after the
 // scale and before the mask, as the reference layers apply it), with the
@@ -69,7 +70,9 @@
 //   128 and 256 are 1, 2 and 4 column chunks of 64 under SWIZZLE_128B.
 //   D = 80's 160-byte rows match no 128-byte atom; it stays on TMA with
 //   SWIZZLE_32B: 5 chunks of 16 columns, one k16 step each, and n80 in
-//   P V steps over them by the descriptor's leading byte offset.
+//   P V steps over them by the descriptor's leading byte offset.  D =
+//   224 (Zamba2-7B's 448-byte rows) is laid out the same way: 14 chunks
+//   of 16 columns, n224 in P V.
 // - Causal blocks launch the heaviest q-tiles first (blockIdx.y reversed),
 //   so the long diagonal tail does not end the grid.
 // - Registers: at D = 256 a warpgroup's 64 x 256 fp32 accumulator is 128
@@ -79,6 +82,7 @@
 //   warpgroups the producer warpgroup drops to 24 (setmaxnreg) and the
 //   consumers rise to 240: 128 x 24 + 256 x 240 = 384 x 168.  (A lone
 //   producer warp cannot give back enough: 9 warps start at 168 too.)
+//   D = 224 (112 accumulator registers) does the same.
 //   Elsewhere the producer is one warp: a whole warpgroup would hold its
 //   registers for nothing and keep a second block off the SM.
 // The query rows a block (64, 128 or 192) are an argument: the wrapper
@@ -276,6 +280,48 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<224>(float (&d)[112], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "
+      "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111},"
+      "{%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
                                              uint64_t b) {
   asm volatile(
@@ -376,9 +422,9 @@ __host__ __device__ constexpr int smem_bytes(int ncw) {
   return q_bytes<D>(ncw) + 2 * kStages * kv_bytes<D>() + 8 * (1 + 4 * kStages) + 1024;
 }
 
-// Only the D = 256 two-warpgroup block moves registers (see the note); the
-// others keep a lone producer warp, so more blocks fit on an SM.
-__host__ __device__ constexpr bool rebalance(int d, int ncw) { return d == 256 && ncw == 2; }
+// Only the D = 224 and 256 two-warpgroup blocks move registers (see the
+// note); the others keep a lone producer warp, so more blocks fit on an SM.
+__host__ __device__ constexpr bool rebalance(int d, int ncw) { return d >= 224 && ncw == 2; }
 __host__ __device__ constexpr int block_threads(int d, int ncw) {
   return ncw * kWG + (rebalance(d, ncw) ? kWG : 32);
 }
@@ -779,19 +825,20 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // q, o: (B, S, H, D); k, v: (B, S, KH, D); all contiguous, one dtype
 // (0 = float32, 1 = bfloat16).  H % KH == 0; D <= 256 in fp32, D in
-// {64, 80, 128, 256} in bf16 with 16-byte aligned pointers.  bf16 only:
-// q_rows, the query rows a block (64 or 128; 192 at D 64 and 80).
-// softcap: 0 for none, else the cap c > 0.
-// Returns a cudaError_t (0 = launched).
+// {64, 80, 128, 224, 256} in bf16 with 16-byte aligned pointers.  bf16
+// only: q_rows, the query rows a block (64 or 128; 192 at D 64 and 80).
+// softcap: 0 for none, else the cap c > 0.  scale: the logits' scale, 0
+// for 1 / sqrt(D).  Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int H, int KH, int d, int causal,
-                                      int dtype, int q_rows, float softcap, void* stream) {
+                                      int dtype, int q_rows, float softcap, float scale,
+                                      void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || KH <= 0 || H % KH || d <= 0 || d > kMaxD ||
-      B > 65535 || H > 65535 || !(softcap >= 0.f)) {
+      B > 65535 || H > 65535 || !(softcap >= 0.f) || !(scale >= 0.f)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = (cudaStream_t)stream;
-  const float scale = 1.f / sqrtf((float)d);
+  if (scale == 0.f) scale = 1.f / sqrtf((float)d);
   if (dtype == 1) {
     switch (d) {
       case 64:
@@ -802,6 +849,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       st);
       case 128:
         return (int)launch_bf16<128>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
+                                      st);
+      case 224:
+        return (int)launch_bf16<224>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,
                                       st);
       case 256:
         return (int)launch_bf16<256>(q, k, v, o, B, S, H, KH, scale, causal, softcap, q_rows,

@@ -3,10 +3,13 @@
 // Replaces: src/repro/kernels/rmsnorm.py::rmsnorm, the Pallas TPU kernel
 // behind src/repro/kernels/ops.py::rmsnorm_op.
 //
-// Computes, for each row of x (M, D):
-//     y = x * rsqrt(mean(x^2) + eps) * (1 + w)
+// Computes, for each row r of x (M, D):
+//     y = x * rsqrt(mean(x^2) + eps) * (1 + w[r mod G])
 // with the sum of squares in fp32 and y in x's dtype (fp32 or bf16);
-// w is fp32, as the models keep their norm weights.
+// w is G rows of D fp32 values, as the models keep their norm weights.
+// G is 1 but for a norm by groups (Zamba2's gated norm over d_inner in
+// mamba_ngroups groups: the rows of (B, S, G, D) each take their group's
+// weight).
 //
 // Bound: device memory.  The kernel does ~4 flops per element, far below
 // the card's ~295 flops per byte, so the least time is the bytes it must
@@ -98,7 +101,7 @@ __device__ __forceinline__ float elem(const float4& v, int j) {
 template <typename T, int kThreads, int kVecs, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_vec_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   T* __restrict__ y, int nv_arg, float eps) {
+                   T* __restrict__ y, int nv_arg, int wg, float eps) {
   constexpr int kN = 16 / sizeof(T);  // elements a vector
   constexpr int kW4 = kN / 4;         // float4 of w a vector
   constexpr int kWarps = kThreads / 32;
@@ -106,7 +109,9 @@ rmsnorm_vec_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const int nv = kExact ? kThreads * kVecs : nv_arg;
   const int t = threadIdx.x;
   const uint4* xr = reinterpret_cast<const uint4*>(x) + (int64_t)blockIdx.x * nv;
-  const float4* w4 = reinterpret_cast<const float4*>(w);
+  // the row's weight (a uniform select: no division where wg is 1)
+  const int wrow = wg == 1 ? 0 : (int)(blockIdx.x % wg);
+  const float4* w4 = reinterpret_cast<const float4*>(w) + (int64_t)wrow * nv * kW4;
 
   // every load first: w, then x
   float4 wv[kVecs][kW4];
@@ -172,9 +177,9 @@ template <typename T, int kThreads, int kVecs, bool kExact = true>
 struct Inst {
   static constexpr Geometry geometry{kThreads, kVecs};
   static void launch(const void* x, const float* w, void* y, long long m, int nv,
-                     float eps, cudaStream_t s) {
+                     int wg, float eps, cudaStream_t s) {
     rmsnorm_vec_kernel<T, kThreads, kVecs, kExact>
-        <<<(unsigned)m, kThreads, 0, s>>>((const T*)x, w, (T*)y, nv, eps);
+        <<<(unsigned)m, kThreads, 0, s>>>((const T*)x, w, (T*)y, nv, wg, eps);
   }
 };
 
@@ -232,9 +237,10 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 template <typename T>
 __global__ void __launch_bounds__(kScalarThreads)
 rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      T* __restrict__ y, int d, float eps) {
+                      T* __restrict__ y, int d, int wg, float eps) {
   __shared__ float red[kScalarThreads / 32 + 1];
   const T* xr = x + (int64_t)blockIdx.x * d;
+  const float* wr = w + (int64_t)(wg == 1 ? 0 : blockIdx.x % wg) * d;
   T* yr = y + (int64_t)blockIdx.x * d;
   float ss = 0.f;
   for (int i = threadIdx.x; i < d; i += kScalarThreads) {
@@ -243,21 +249,21 @@ rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
   const float r = rsqrtf(block_sum(ss, red) / d + eps);
   for (int i = threadIdx.x; i < d; i += kScalarThreads) {
-    yr[i] = from_f32<T>(to_f32(xr[i]) * r * (1.f + w[i]));
+    yr[i] = from_f32<T>(to_f32(xr[i]) * r * (1.f + wr[i]));
   }
 }
 
 template <typename T>
-void launch(const void* x, const float* w, void* y, long long m, int d,
+void launch(const void* x, const float* w, void* y, long long m, int d, int wg,
             float eps, cudaStream_t stream) {
   const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0 &&
                        (uintptr_t)w % 16 == 0;
   if (aligned && vector_width<T>(d)) {
     const int nv = d / (16 / (int)sizeof(T));
-    with_width<T>(d, [&](auto inst) { inst.launch(x, w, y, m, nv, eps, stream); });
+    with_width<T>(d, [&](auto inst) { inst.launch(x, w, y, m, nv, wg, eps, stream); });
   } else {
     rmsnorm_scalar_kernel<T><<<(unsigned)m, kScalarThreads, 0, stream>>>(
-        (const T*)x, w, (T*)y, d, eps);
+        (const T*)x, w, (T*)y, d, wg, eps);
   }
 }
 
@@ -273,20 +279,30 @@ __global__ void rmsnorm_floor_kernel() {}
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  m rows of d elements, contiguous;
-// w is d fp32 values.  Returns a cudaError_t (0 = launched).
-extern "C" int rmsnorm_launch(const void* x, const void* w, void* y,
-                              long long m, int d, float eps, int dtype,
-                              void* stream) {
-  if (m <= 0 || m > 0x7fffffffLL || d <= 0) return (int)cudaErrorInvalidValue;
+// w is wg rows of d fp32 values, row r of x taking w's row r mod wg
+// (wg divides m).  Returns a cudaError_t (0 = launched).
+extern "C" int rmsnorm_grouped_launch(const void* x, const void* w, void* y,
+                                      long long m, int d, int wg, float eps, int dtype,
+                                      void* stream) {
+  if (m <= 0 || m > 0x7fffffffLL || d <= 0 || wg <= 0 || m % wg) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    launch<float>(x, (const float*)w, y, m, d, eps, s);
+    launch<float>(x, (const float*)w, y, m, d, wg, eps, s);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, (const float*)w, y, m, d, eps, s);
+    launch<__nv_bfloat16>(x, (const float*)w, y, m, d, wg, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// One weight row for every row of x: w is d fp32 values.
+extern "C" int rmsnorm_launch(const void* x, const void* w, void* y,
+                              long long m, int d, float eps, int dtype,
+                              void* stream) {
+  return rmsnorm_grouped_launch(x, w, y, m, d, 1, eps, dtype, stream);
 }
 
 // The layout rmsnorm_launch takes for width d and dtype on 16-byte-aligned

@@ -4,6 +4,9 @@
 // behind src/repro/kernels/ops.py::ssd, and the wrapper's pre-scaling
 // passes around it.
 //
+// B and C come in G groups (Mamba2's ngroups; G = 1 is one B and C for
+// every head): head h reads group h / (H / G), by a group stride.
+//
 // Computes, per (batch row b, head h), over the chunks of Q positions in
 // order, with cs = the within-chunk cumulative sum of dt * A, A =
 // -exp(a_log[h]), and X = x * dt:
@@ -132,10 +135,10 @@ __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, int64_t xsb, int64_t xss, int64_t xsh,
            const float* __restrict__ dt, int64_t dsb, int64_t dss, int64_t dsh,
            const float* __restrict__ a_log,
-           const T* __restrict__ bm, int64_t bsb, int64_t bss,
-           const T* __restrict__ cm, int64_t csb, int64_t css,
+           const T* __restrict__ bm, int64_t bsb, int64_t bss, int64_t bsg,
+           const T* __restrict__ cm, int64_t csb, int64_t css, int64_t csg,
            T* __restrict__ y, float* __restrict__ state_out,
-           int S, int H, int P, int N, int Q) {
+           int S, int H, int P, int N, int Q, int hpg) {
   extern __shared__ __align__(16) float smem[];
   const int QP = pitch_t(Q);
   float* sX = smem;              // [Q][P]  x * dt, rounded to T
@@ -154,8 +157,8 @@ ssd_kernel(const T* __restrict__ x, int64_t xsb, int64_t xss, int64_t xsh,
   const float A = -expf(a_log[h]);
   const T* xb = x + b * xsb + h * xsh;
   const float* dtb = dt + b * dsb + h * dsh;
-  const T* bb = bm + b * bsb;
-  const T* cb = cm + b * csb;
+  const T* bb = bm + b * bsb + (h / hpg) * bsg;
+  const T* cb = cm + b * csb + (h / hpg) * csg;
   T* yb = y + ((int64_t)b * S * H + h) * P;  // y is contiguous (B, S, H, P)
   const int64_t y_row = (int64_t)H * P;
 
@@ -283,9 +286,9 @@ template <typename T>
 cudaError_t launch(const void* x, int64_t xsb, int64_t xss, int64_t xsh,
                    const float* dt, int64_t dsb, int64_t dss, int64_t dsh,
                    const float* a_log, const void* bm, int64_t bsb, int64_t bss,
-                   const void* cm, int64_t csb, int64_t css, void* y,
-                   float* state, int B, int S, int H, int P, int N, int Q,
-                   cudaStream_t st) {
+                   int64_t bsg, const void* cm, int64_t csb, int64_t css, int64_t csg,
+                   void* y, float* state, int B, int S, int H, int P, int N, int Q,
+                   int hpg, cudaStream_t st) {
   static bool granted = false;
   constexpr size_t kMaxBytes = sizeof(float) * smem_floats(kMaxDim, kMaxDim, kMaxDim);
   if (!granted) {
@@ -298,7 +301,7 @@ cudaError_t launch(const void* x, int64_t xsb, int64_t xss, int64_t xsh,
   const dim3 grid(H, B);
   ssd_kernel<T><<<grid, kThreads, bytes, st>>>(
       (const T*)x, xsb, xss, xsh, dt, dsb, dss, dsh, a_log, (const T*)bm, bsb,
-      bss, (const T*)cm, csb, css, (T*)y, state, S, H, P, N, Q);
+      bss, bsg, (const T*)cm, csb, css, csg, (T*)y, state, S, H, P, N, Q, hpg);
   return cudaGetLastError();
 }
 
@@ -409,10 +412,10 @@ __global__ void __launch_bounds__(kMmaThreads, 3)
 ssd_mma_kernel(const bf16* __restrict__ x, int64_t xsb, int64_t xss, int64_t xsh,
                const float* __restrict__ dt, int64_t dsb, int64_t dss, int64_t dsh,
                const float* __restrict__ a_log,
-               const bf16* __restrict__ bm, int64_t bsb, int64_t bss,
-               const bf16* __restrict__ cm, int64_t csb, int64_t css,
+               const bf16* __restrict__ bm, int64_t bsb, int64_t bss, int64_t bsg,
+               const bf16* __restrict__ cm, int64_t csb, int64_t css, int64_t csg,
                bf16* __restrict__ y, float* __restrict__ state_out,
-               int S, int H, int P, int N, int Q) {
+               int S, int H, int P, int N, int Q, int hpg) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sX = reinterpret_cast<bf16*>(smem_raw);  // 2 x [64][kPitch] bf16(x * dt), by position j
   bf16* sB = sX + 2 * kTile;  // 2 x [64][kPitch] B, by position j
@@ -428,8 +431,8 @@ ssd_mma_kernel(const bf16* __restrict__ x, int64_t xsb, int64_t xss, int64_t xsh
   const float A = -expf(a_log[h]);
   const bf16* xb = x + b * xsb + h * xsh;
   const float* dtb = dt + b * dsb + h * dsh;
-  const bf16* bb = bm + b * bsb;
-  const bf16* cb = cm + b * csb;
+  const bf16* bb = bm + b * bsb + (h / hpg) * bsg;
+  const bf16* cb = cm + b * csb + (h / hpg) * csg;
   bf16* yb = y + ((int64_t)b * S * H + h) * P;  // y is contiguous (B, S, H, P)
   const int64_t y_row = (int64_t)H * P;
   const int r0 = 16 * warp;  // the warp's rows of the chunk and of the state
@@ -699,9 +702,9 @@ template <bool kVec>
 cudaError_t launch_mma(const void* x, int64_t xsb, int64_t xss, int64_t xsh,
                        const float* dt, int64_t dsb, int64_t dss, int64_t dsh,
                        const float* a_log, const void* bm, int64_t bsb, int64_t bss,
-                       const void* cm, int64_t csb, int64_t css, void* y,
-                       float* state, int B, int S, int H, int P, int N, int Q,
-                       cudaStream_t st) {
+                       int64_t bsg, const void* cm, int64_t csb, int64_t css,
+                       int64_t csg, void* y, float* state, int B, int S, int H, int P,
+                       int N, int Q, int hpg, cudaStream_t st) {
   static bool granted = false;
   if (!granted) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -716,7 +719,7 @@ cudaError_t launch_mma(const void* x, int64_t xsb, int64_t xss, int64_t xsh,
   }
   ssd_mma_kernel<kVec><<<dim3(H, B), kMmaThreads, kMmaSmemBytes, st>>>(
       (const bf16*)x, xsb, xss, xsh, dt, dsb, dss, dsh, a_log, (const bf16*)bm, bsb, bss,
-      (const bf16*)cm, csb, css, (bf16*)y, state, S, H, P, N, Q);
+      bsg, (const bf16*)cm, csb, css, csg, (bf16*)y, state, S, H, P, N, Q, hpg);
   return cudaGetLastError();
 }
 
@@ -724,37 +727,40 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// x (B, S, H, P), bm and cm (B, S, N) in one dtype (0 = float32, 1 =
+// x (B, S, H, P), bm and cm (B, S, G, N) in one dtype (0 = float32, 1 =
 // bfloat16), each with a unit stride in its last dim and the other
 // strides (in elements) given; dt (B, S, H) and a_log (H,) fp32.  y
 // (B, S, H, P) in x's dtype and state (B, H, P, N) fp32, both contiguous.
-// Q divides S; Q, N and P are multiples of 4 in [4, 64].  Returns a
-// cudaError_t (0 = launched).
+// Q divides S; Q, N and P are multiples of 4 in [4, 64]; G divides H.
+// Returns a cudaError_t (0 = launched).
 extern "C" int ssd_scan_launch(const void* x, long long xsb, long long xss,
                                long long xsh, const void* dt, long long dsb,
                                long long dss, long long dsh, const void* a_log,
-                               const void* bm, long long bsb, long long bss,
-                               const void* cm, long long csb, long long css,
+                               const void* bm, long long bsb, long long bss, long long bsg,
+                               const void* cm, long long csb, long long css, long long csg,
                                void* y, void* state, int B, int S, int H, int P,
-                               int N, int Q, int dtype, void* stream) {
+                               int N, int Q, int G, int dtype, void* stream) {
   const bool dims_ok = Q >= 4 && N >= 4 && P >= 4 && Q <= kMaxDim && N <= kMaxDim &&
                        P <= kMaxDim && Q % 4 == 0 && N % 4 == 0 && P % 4 == 0;
-  if (B <= 0 || S <= 0 || H <= 0 || !dims_ok || S % Q || B > 65535) {
+  if (B <= 0 || S <= 0 || H <= 0 || !dims_ok || S % Q || B > 65535 || G <= 0 || H % G) {
     return (int)cudaErrorInvalidValue;
   }
+  const int hpg = H / G;
   const cudaStream_t st = (cudaStream_t)stream;
   const float* dtf = (const float*)dt;
   const float* al = (const float*)a_log;
   if (dtype == 0) {
-    return (int)launch<float>(x, xsb, xss, xsh, dtf, dsb, dss, dsh, al, bm, bsb, bss,
-                              cm, csb, css, y, (float*)state, B, S, H, P, N, Q, st);
+    return (int)launch<float>(x, xsb, xss, xsh, dtf, dsb, dss, dsh, al, bm, bsb, bss, bsg,
+                              cm, csb, css, csg, y, (float*)state, B, S, H, P, N, Q, hpg,
+                              st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   // 16-byte staging loads and y stores where every row of x, B, C and y
   // starts on a 16-byte boundary; scalar ones otherwise
   const bool vec = P % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(bm) &&
-                   aligned16(cm) && aligned16(y) && (xsb | xss | xsh | bsb | bss | csb | css) % 8 == 0;
+                   aligned16(cm) && aligned16(y) &&
+                   (xsb | xss | xsh | bsb | bss | bsg | csb | css | csg) % 8 == 0;
   return (int)(vec ? launch_mma<true> : launch_mma<false>)(
-      x, xsb, xss, xsh, dtf, dsb, dss, dsh, al, bm, bsb, bss, cm, csb, css, y,
-      (float*)state, B, S, H, P, N, Q, st);
+      x, xsb, xss, xsh, dtf, dsb, dss, dsh, al, bm, bsb, bss, bsg, cm, csb, css, csg, y,
+      (float*)state, B, S, H, P, N, Q, hpg, st);
 }

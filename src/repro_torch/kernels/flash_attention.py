@@ -8,9 +8,12 @@ raises; on CPU tensors it runs ``attention_plain``.  Both read kv head
 ``h // (H // KH)`` for query head ``h``; neither repeats heads.  Both
 take an optional ``softcap`` c (Gemma-2's ``attn_logit_softcap``): the
 scaled logits become c·tanh(logit / c) before the causal mask, as the
-reference layers apply it; the kernel has it as a compile-time flag.  The
-kernel has no backward: with grad enabled, an input off the CPU that
-requires grad raises.
+reference layers apply it; the kernel has it as a compile-time flag.
+Both take an optional ``scale`` for the logits (Zamba2's shared
+attention scales by (D / 2)^-1/2), by default 1 / sqrt(D); the kernel
+folds it into its exp2 as it folds the default.  The kernel has no
+backward: with grad enabled, an input off the CPU that requires grad
+raises.
 
 In bf16 a launch has a tile: query rows per block (one consumer
 warpgroup each 64: 64 or 128, and 192 at head_dim 64 and 80) over the
@@ -35,25 +38,28 @@ launches = 0  # kernel launches so far; chip_smoke.py zeroes and reads it
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-BF16_HEAD_DIMS = (64, 80, 128, 256)  # the kernel's compiled tile widths
+BF16_HEAD_DIMS = (64, 80, 128, 224, 256)  # the kernel's compiled tile widths
 # query rows a block may have, by head_dim: one consumer warpgroup per 64;
 # three fit the register file only at the narrow widths
-Q_ROWS = {64: (64, 128, 192), 80: (64, 128, 192), 128: (64, 128), 256: (64, 128)}
+Q_ROWS = {64: (64, 128, 192), 80: (64, 128, 192), 128: (64, 128), 224: (64, 128),
+          256: (64, 128)}
 SMS = 132  # streaming multiprocessors of an H100
 MAX_PACK = 64  # query heads packed into one block's rows
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+                    causal: bool = True, softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(D)) v in fp32, returned in q's dtype — the
     kernel's semantics (``repro.kernels.ref.attention_ref`` with grouped
     kv heads); with ``softcap`` c the scaled logits are c·tanh(logit / c)
-    before the mask."""
+    before the mask; ``scale`` replaces 1 / sqrt(D)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     g = h // kh
     qg = q.float().reshape(b, s, kh, g, d)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (1.0 / math.sqrt(d))
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * (
+        1.0 / math.sqrt(d) if scale is None else scale)
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     if causal:
@@ -105,7 +111,8 @@ def _launcher():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -159,18 +166,22 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+                    causal: bool = True, softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Attention over (B, S, H, D) queries and (B, S, KH, D) keys/values,
-    the logits capped at ``softcap`` if it is given (> 0)."""
+    the logits scaled by ``scale`` (1 / sqrt(D) if None) and capped at
+    ``softcap`` if it is given (> 0)."""
     if softcap is not None and not softcap >= 0:
         raise ValueError(f"flash_attention: softcap {softcap} must not be negative")
+    if scale is not None and not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} must be positive")
     devices = {t.device for t in (q, k, v)}
     on_cpu = devices == {torch.device("cpu")}
     if not on_cpu and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the CUDA kernel has no backward; call it "
                            "under torch.no_grad() or on inputs that do not require grad")
     if on_cpu:
-        return attention_plain(q, k, v, causal, softcap)
+        return attention_plain(q, k, v, causal, softcap, scale)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k, v on {sorted(map(str, devices))}")
     _check(q, k, v)
@@ -184,7 +195,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, h, kh, d, int(causal), _DTYPES[q.dtype], q_rows, float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        float(scale or 0.0), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

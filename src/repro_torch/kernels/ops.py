@@ -100,29 +100,34 @@ def _stand_in(name: str, cost: dict) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, softcap: float | None = None) -> torch.Tensor:
+              causal: bool = True, softcap: float | None = None,
+              scale: float | None = None) -> torch.Tensor:
     """GQA flash attention: q (B, S, H, D), k/v (B, S, KH, D) -> (B, S, H, D),
-    the logits capped at ``softcap`` if it is given."""
+    the logits scaled by ``scale`` (1 / sqrt(D) if None) and capped at
+    ``softcap`` if it is given."""
     if _PLAIN.get():
-        return attention_plain(q, k, v, causal, softcap)
+        return attention_plain(q, k, v, causal, softcap, scale)
     if isinstance(q, FakeTensor):
         _fa.check_inputs(q, k, v)
         _stand_in("flash_attention", _fa.cost(*q.shape[:3], k.shape[2], q.shape[3],
                                               causal=causal, softcap=softcap, dtype=q.dtype))
         return torch.empty_like(q)
-    return flash_attention(q, k, v, causal=causal, softcap=softcap)
+    return flash_attention(q, k, v, causal=causal, softcap=softcap, scale=scale)
 
 
 def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last dim of any (..., D) tensor (a strided one is
-    copied to dense rows first)."""
+    copied to dense rows first), with ``w`` (D,), or (G, D) for a
+    (..., G, D) tensor normed by groups (each group its own weight row):
+    one kernel launch either way."""
     if _PLAIN.get():
         return rmsnorm_plain(x, w, eps)
     shape = x.shape
     rows = x.reshape(-1, shape[-1]).contiguous()  # the kernel reads dense rows
     if isinstance(x, FakeTensor):
         _rn.check_inputs(rows, w)
-        _stand_in("rmsnorm", _rn.cost(*rows.shape, x.dtype))
+        _stand_in("rmsnorm", _rn.cost(*rows.shape, x.dtype,
+                                      groups=w.shape[0] if w.dim() == 2 else 1))
         return torch.empty_like(rows).reshape(shape)
     return rmsnorm(rows, w, eps).reshape(shape)
 
@@ -130,15 +135,17 @@ def rmsnorm_op(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Ten
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, bm: torch.Tensor,
         cm: torch.Tensor, *, chunk: int = 64, return_state: bool = False):
     """Mamba2 SSD with natural layouts (drop-in for ``ssd_chunked``): x
-    (B, S, H, P), dt (B, S, H), a_log (H,), bm/cm (B, S, N) -> y (B, S,
-    H, P), and with ``return_state`` also the (B, H, P, N) fp32 state."""
+    (B, S, H, P), dt (B, S, H), a_log (H,), bm/cm (B, S, N) or (B, S, G,
+    N) in groups -> y (B, S, H, P), and with ``return_state`` also the
+    (B, H, P, N) fp32 state."""
     if _PLAIN.get():
         return ssd_plain(x, dt, a_log, bm, cm, chunk, return_state=return_state)
     if isinstance(x, FakeTensor):
         _ss.check_inputs(x, dt, a_log, bm, cm, chunk)
         b, s, h, p = x.shape
         n = bm.shape[-1]
-        _stand_in("ssd_scan", _ss.cost(b, s, h, p, n, chunk, x.dtype))
+        _stand_in("ssd_scan", _ss.cost(b, s, h, p, n, chunk, x.dtype,
+                                       groups=bm.shape[2] if bm.dim() == 4 else 1))
         y = x.new_empty((b, s, h, p))
         state = x.new_empty((b, h, p, n), dtype=torch.float32)
         return (y, state) if return_state else y

@@ -9,9 +9,10 @@ the prefill logits and softmax in fp32, as the TPU kernel does; the JAX
 layer rounds them to x's dtype — at fp32 the two agree to rounding.
 Decode attention has no kernel in the reference and stays torch ops.
 ``attn_logit_softcap`` is applied in every attention path, as in the
-reference (the kernel has it too).  Past ``CHUNKED_ATTN_THRESHOLD``
-tokens the plain route (the CPU, or ``plain_kernels()`` in training)
-goes block by block (``attention_chunked``) instead of forming the
+reference (the kernel has it too), and so is the published Zamba2's
+(head_dim / 2)^-1/2 scale (``zamba2.attn_scale``; head_dim^-1/2
+elsewhere).  Past ``CHUNKED_ATTN_THRESHOLD`` tokens the plain route
+(the CPU, or ``plain_kernels()`` in training) goes block by block (``attention_chunked``) instead of forming the
 O(S²) logits; on the card the flash kernel serves every S (and so
 does its stand-in for a fake tensor, ``kernels.ops``).
 The JAX package's sharding hints are dropped: the port's model body
@@ -31,6 +32,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from ..kernels.ops import attention as _flash
 from ..kernels.ops import kernel_route, plain_route, rmsnorm_op
 from .config import ModelConfig
+from .zamba2 import attn_scale
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -141,7 +143,7 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
 
 
 def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  softcap: float | None, blk: int) -> torch.Tensor:
+                  softcap: float | None, blk: int, scale: float | None = None) -> torch.Tensor:
     """Causal attention of q (B, S, H, Dh) over k, v (B, S, KH, Dh) one
     (q-block, kv-block) pair of the lower triangle at a time, with an fp32
     online softmax, in the reference's ``attention_chunked`` order: q
@@ -153,7 +155,8 @@ def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kh = k.shape[2]
     g = h // kh
     blk = min(blk, s)
-    scale = 1.0 / np.sqrt(dh)
+    if scale is None:
+        scale = 1.0 / np.sqrt(dh)
     outs = []
     for q0 in range(0, s, blk):
         q1 = min(q0 + blk, s)
@@ -181,13 +184,19 @@ def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def _scale(cfg: ModelConfig) -> dict:
+    """The logits' scale as a keyword where the config sets one."""
+    scale = attn_scale(cfg)
+    return {} if scale is None else {"scale": scale}
+
+
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Causal attention of the projected heads, capped at the config's
     softcap: the flash kernel (or its plain version), or past
     ``CHUNKED_ATTN_THRESHOLD`` on the plain route the block-by-block one."""
     if q.shape[1] > CHUNKED_ATTN_THRESHOLD and (plain_route() or not kernel_route(q)):
-        return _chunked_core(q, k, v, cfg.attn_logit_softcap, 2048)
-    return _flash(q, k, v, causal=True, softcap=cfg.attn_logit_softcap)
+        return _chunked_core(q, k, v, cfg.attn_logit_softcap, 2048, **_scale(cfg))
+    return _flash(q, k, v, causal=True, softcap=cfg.attn_logit_softcap, **_scale(cfg))
 
 
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -214,7 +223,8 @@ def attention_chunked(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: tor
     memory O(S·blk) instead of O(S²)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    out = _chunked_core(q, k, v, cfg.attn_logit_softcap, blk).reshape(b, s, cfg.q_dim)
+    out = _chunked_core(q, k, v, cfg.attn_logit_softcap, blk,
+                        **_scale(cfg)).reshape(b, s, cfg.q_dim)
     return out @ p["wo"]
 
 
@@ -250,9 +260,9 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     # a cache kept narrower than x is widened for the products, and the
     # logits go to fp32 before the scale (the JAX layer divides by a NumPy
     # scalar): both as JAX's type promotion does
-    logits = torch.einsum(
-        "bskgd,btkd->bkgst", qg, cache_k.to(q.dtype)
-    ).float() / math.sqrt(dh)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, cache_k.to(q.dtype)).float()
+    scale = attn_scale(cfg)
+    logits = logits / math.sqrt(dh) if scale is None else logits * scale
     if cfg.attn_logit_softcap:
         c = cfg.attn_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -273,6 +283,8 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _act(cfg_act: str, x: torch.Tensor) -> torch.Tensor:
     if cfg_act.startswith("silu"):
         return F.silu(x)
+    if cfg_act.startswith("gelu_exact"):  # erf gelu (Zamba2's "gelu")
+        return F.gelu(x)
     if cfg_act.startswith("gelu"):
         return F.gelu(x, approximate="tanh")
     if cfg_act == "relu2":  # nemotron squared-ReLU
@@ -281,11 +293,17 @@ def _act(cfg_act: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown activation {cfg_act}")
 
 
-def ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated (GLU) or plain FFN, by activation name."""
+def ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, adapter: dict | None = None) -> torch.Tensor:
+    """Gated (GLU) or plain FFN, by activation name; a GLU's ``adapter``
+    (Zamba2's per-use ``ad_down`` (D, r) and ``ad_up`` (r, 2F)) adds its
+    low-rank product to the gate and up products, gate first."""
     if cfg.activation.endswith("_glu"):
-        gate = _act(cfg.activation, x @ p["w_gate"])
-        return (gate * (x @ p["w_up"])) @ p["w_down"]
+        gate, up = x @ p["w_gate"], x @ p["w_up"]
+        if adapter is not None and "ad_down" in adapter:
+            lo = (x @ adapter["ad_down"]) @ adapter["ad_up"]
+            f = gate.shape[-1]
+            gate, up = gate + lo[..., :f], up + lo[..., f:]
+        return (_act(cfg.activation, gate) * up) @ p["w_down"]
     return _act(cfg.activation, x @ p["w_up"]) @ p["w_down"]
 
 

@@ -20,6 +20,19 @@ its body (inside the remat region, so the backward gathers again rather
 than keep every layer's whole weights), the hybrid's shared block where
 a group or a forward uses it, and the embedding, final norm and head
 once per forward.  Off a mesh the hook is the identity.
+
+A ``Zamba2Config`` (``models/zamba2.py``) with ``hybrid_layer_ids`` runs
+the published Zamba2 stack instead, which the JAX package does not
+have: ``layers`` on one L axis, ``shared`` holding ``num_mem_blocks``
+blocks on a leading axis and ``uses`` each use's own ``linear`` and MLP
+adapter.  Before layer ``hybrid_layer_ids[j]``, use j of block j mod
+``num_mem_blocks`` reads the hidden state and the embedding side by
+side (norm, attention into d, norm, the adapted GLU MLP; no residual
+inside the block), its output goes through the use's linear and is
+added to that Mamba2 layer's input, not to its residual; each use keeps
+its own KV cache.  With tracing on each use over a sequence is a
+``hybrid.shared`` region (none in a decode step).  It runs off a mesh
+only.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from .._device import resolve_device
 from ..dist.hints import current_mesh, mesh_context, rows_split
 from ..dist.shard import block_of, gather_params, take_block
 from ..kernels.ops import plain_kernels, plain_route
+from ..obs.device_spans import region
 from .config import ModelConfig
 from .layers import (
     attention_decode,
@@ -48,6 +62,7 @@ from .layers import (
 )
 from .mamba2 import (
     CONV_K,
+    conv_width,
     mamba2_block,
     mamba2_decode_step,
     mamba2_param_shapes,
@@ -61,6 +76,7 @@ from .rwkv6 import (
     rwkv6_time_mix,
     rwkv6_time_mix_step,
 )
+from .zamba2 import published, zamba2
 
 # ---------------------------------------------------------------------------
 # Parameter shapes & init
@@ -117,10 +133,35 @@ def _groups(cfg: ModelConfig) -> tuple[int, int]:
     return cfg.n_layers // every, every
 
 
+def _shared_block_shapes(cfg: ModelConfig) -> dict:
+    """A published Zamba2 shared block: its input is 2 d wide."""
+    d, da = cfg.d_model, 2 * cfg.d_model
+    return {
+        "ln1": (da,),
+        "attn": {"wq": (da, cfg.q_dim), "wk": (da, cfg.kv_dim), "wv": (da, cfg.kv_dim),
+                 "wo": (cfg.q_dim, d)},
+        "ln2": (d,),
+        "ffn": ffn_param_shapes(cfg, cfg.d_ff),
+    }
+
+
+def _use_shapes(cfg: ModelConfig) -> dict:
+    """A use's own leaves: the d x d linear and the rank-r MLP adapter."""
+    d, r = cfg.d_model, zamba2(cfg).adapter_rank
+    shapes = {"linear": (d, d)}
+    if r:
+        shapes.update(ad_down=(d, r), ad_up=(r, 2 * cfg.d_ff))
+    return shapes
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     d = {"embed": (cfg.vocab_padded, cfg.d_model)}
     layer = _layer_shapes(cfg)
-    if cfg.family == "hybrid":
+    if published(cfg):
+        d["layers"] = _stack(layer, cfg.n_layers)
+        d["shared"] = _stack(_shared_block_shapes(cfg), cfg.num_mem_blocks)
+        d["uses"] = _stack(_use_shapes(cfg), len(cfg.hybrid_layer_ids))
+    elif cfg.family == "hybrid":
         d["layers"] = _stack(layer, *_groups(cfg))
         d["shared"] = _attn_block_shapes(cfg)  # one weight-shared block (Zamba2)
     else:
@@ -342,6 +383,41 @@ def _remat(fn, *args):
                                           _as_in_forward(plain, mesh, split)))
 
 
+def _uses(cfg: ModelConfig, params: dict) -> dict:
+    """The published stack's uses by the layer they precede: {layer: (j,
+    shared block j mod num_mem_blocks, use j's own leaves)}."""
+    if current_mesh() is not None:
+        raise NotImplementedError(f"{cfg.name}: the published Zamba2 stack runs off a mesh")
+    blocks = _unstack(params["shared"], cfg.num_mem_blocks)
+    own = _unstack(params["uses"], len(cfg.hybrid_layer_ids))
+    return {layer: (j, blocks[j % cfg.num_mem_blocks], own[j])
+            for j, layer in enumerate(cfg.hybrid_layer_ids)}
+
+
+def _shared_in(cfg: ModelConfig, bp: dict, x: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    return rms_norm(torch.cat([x, x0], dim=-1), bp["ln1"], cfg.norm_eps)
+
+
+def _shared_out(cfg: ModelConfig, bp: dict, up: dict, a: torch.Tensor) -> torch.Tensor:
+    return ffn(cfg, bp["ffn"], rms_norm(a, bp["ln2"], cfg.norm_eps), up) @ up["linear"]
+
+
+def _shared_use(cfg: ModelConfig, bp: dict, up: dict, x, x0, positions):
+    """One use of a shared block over the whole sequence: (what it adds
+    to the Mamba2 layer's input, the block's K and V)."""
+    b, s = x.shape[:2]
+    with region("hybrid.shared", tokens=b * s, rows=b):
+        a, k, v = attention_prefill(cfg, bp["attn"], _shared_in(cfg, bp, x, x0), positions)
+        return _shared_out(cfg, bp, up, a), k, v
+
+
+def _zamba2_layer(cfg: ModelConfig, lp: dict, use, x0, positions, x: torch.Tensor):
+    """A published Zamba2 layer: the shared block's use (if one precedes
+    the layer) added to the Mamba2 input alone, then the mixer."""
+    h = x if use is None else x + _shared_use(cfg, use[1], use[2], x, x0, positions)[0]
+    return x + mamba2_block(cfg, lp["mix"], rms_norm(h, lp["ln"], cfg.norm_eps))
+
+
 def _layer_body(cfg: ModelConfig, lp: dict, positions, x: torch.Tensor):
     """A dense or MoE layer: (x, its MoE aux loss or None)."""
     x, _, _, aux = _attn_block(cfg, _gathered(cfg, lp, "layer"), x, positions)
@@ -384,6 +460,12 @@ def _backbone(cfg: ModelConfig, params: dict, tokens, inputs_embeds, positions, 
     if positions is None:
         positions = positions_for(cfg, b, s, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if published(cfg):
+        x0, uses = x, _uses(cfg, params)
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            body = functools.partial(_zamba2_layer, cfg, lp, uses.get(i), x0, positions)
+            x = _remat(body, x) if remat else body(x)
+        return x, aux
     if cfg.family == "hybrid":
         groups, every = _groups(cfg)
         for gp in _unstack(params["layers"], groups):
@@ -448,6 +530,17 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     tokens (``device="meta"``: its shapes and dtypes alone)."""
     _require_ported(cfg)
     dev = resolve_device(device, allow_meta=True)
+    if published(cfg):
+        kv = (len(cfg.hybrid_layer_ids), batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        ph = cfg.d_inner // cfg.ssm_heads
+        return {
+            "conv": torch.zeros((cfg.n_layers, batch, CONV_K - 1, conv_width(cfg)),
+                                dtype=dtype, device=dev),
+            "ssm": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, ph, cfg.ssm_state),
+                               dtype=torch.float32, device=dev),
+            "k": torch.zeros(kv, dtype=dtype, device=dev),
+            "v": torch.zeros(kv, dtype=dtype, device=dev),
+        }
     if cfg.family == "hybrid":
         g, e = _groups(cfg)
         kv = (g, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -486,6 +579,8 @@ def decode_state_batch_dims(cfg: ModelConfig) -> dict:
     """Index of the per-request batch axis in each decode-state leaf — the
     axis the serve engine scatters admitted rows along."""
     _require_ported(cfg)
+    if published(cfg):
+        return {"conv": 1, "ssm": 1, "k": 1, "v": 1}
     if cfg.family == "hybrid":
         return {"conv": 2, "ssm": 2, "k": 1, "v": 1}
     if cfg.family == "ssm":
@@ -502,8 +597,9 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     Returns (last-token logits (B, V) float32 with the padded vocab at
     -1e30, decode state): dense and MoE {"k", "v"} of (L, B, S, KH, Dh); hybrid
     also {"conv": (G, E, B, K-1, Di), "ssm": (G, E, B, H, P, N) fp32} with
-    K/V of (G, B, S, KH, Dh); ssm {"tm_shift", "cm_shift": (L, B, D),
-    "wkv": (L, B, H, K, K)}, fp32, the shifts each row's normed inputs at
+    K/V of (G, B, S, KH, Dh) (the published Zamba2 stack: (L, B, K-1, C),
+    (L, B, H, P, N) and a K/V a use, (A, B, S, KH, Dh)); ssm {"tm_shift",
+    "cm_shift": (L, B, D), "wkv": (L, B, H, K, K)}, fp32, the shifts each row's normed inputs at
     its last real token.  Pads sit after every real token: the causal
     mask keeps them out of real rows, their KV rows lie beyond the decode
     validity mask, in the SSM they take dt=0 and in the WKV k=0, w=1
@@ -523,7 +619,20 @@ def prefill_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     rows, last = torch.arange(b, device=dev), lengths - 1
     if cfg.family in ("hybrid", "ssm"):
         valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
-    if cfg.family == "hybrid":
+    if published(cfg):
+        x0, uses = x, _uses(cfg, params)
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            h = x
+            if i in uses:
+                j, bp, up = uses[i]
+                t, state["k"][j], state["v"][j] = _shared_use(cfg, bp, up, x, x0, positions)
+                h = x + t
+            out, st = mamba2_prefill(cfg, lp["mix"], rms_norm(h, lp["ln"], cfg.norm_eps),
+                                     valid, lengths, state_dtype=state_dtype)
+            x = x + out
+            state["conv"][i] = st["conv"]
+            state["ssm"][i] = st["ssm"]
+    elif cfg.family == "hybrid":
         e = cfg.hybrid_attn_every
         shared = _gathered(cfg, params["shared"], "shared")
         for gi, ei, lp in _hybrid_layers(cfg, params):
@@ -577,7 +686,20 @@ def decode_step(cfg: ModelConfig, params: dict, state: dict,
     _require_ported(cfg)
     params = _gathered(cfg, params, "top")
     x = _embed(cfg, params, tokens)
-    if cfg.family == "hybrid":
+    if published(cfg):
+        x0, uses = x, _uses(cfg, params)
+        for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            h = x
+            if i in uses:
+                j, bp, up = uses[i]
+                a, _, _ = attention_decode(cfg, bp["attn"], _shared_in(cfg, bp, x, x0),
+                                           state["k"][j], state["v"][j], pos)
+                h = x + _shared_out(cfg, bp, up, a)
+            layer_state = {"conv": state["conv"][i], "ssm": state["ssm"][i]}
+            out, _ = mamba2_decode_step(cfg, lp["mix"], layer_state,
+                                        rms_norm(h, lp["ln"], cfg.norm_eps))
+            x = x + out
+    elif cfg.family == "hybrid":
         every = cfg.hybrid_attn_every
         shared = _gathered(cfg, params["shared"], "shared")
         for g, e, lp in _hybrid_layers(cfg, params):

@@ -33,7 +33,11 @@ the CPU (loss and grad norm to 1e-4 relative; parameters as
 ``test_torch_train.py`` holds them to JAX: at most 1e-4 of the entries
 beyond 1e-5, none beyond 4 LR) and launches no kernel.  The capped flash
 instances (``softcap``) are held to the capped plain version with the
-same tolerances.
+same tolerances.  So are Zamba2-7B's forms: flash at head_dim 224 with
+its (D / 2)^-1/2 scale, the SSD with B and C in two groups, and rmsnorm
+with a weight row a group; and a reduced published Zamba2 stack on the
+card is held to its CPU run at fp32 with the fp32 tolerance, launching
+one rmsnorm a norm, one flash a shared-block use and one SSD a layer.
 """
 
 import pytest
@@ -79,6 +83,25 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     got = rn.rmsnorm(x, w)
     assert rn.launches == before + 1
     torch.testing.assert_close(got, rn.rmsnorm_plain(x, w), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,g,d", [(8, 2, 3584), (6, 2, 3584), (12, 3, 100), (4, 4, 7168)])
+def test_rmsnorm_kernel_by_groups_matches_plain(cuda, m, g, d, dtype):
+    """Weights (G, D), row r scaled by w[r mod G] (Zamba2-7B's gated norm:
+    d_inner 7168 in 2 groups of 3584): one launch; a width off 16 bytes
+    takes the scalar path."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(m, d, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(g, d, generator=gen, device=cuda) * 0.2
+    before = rn.launches
+    got = rn.rmsnorm(x, w)
+    assert rn.launches == before + 1
+    want = rn.rmsnorm_plain(x, w)
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    for r in (0, m - 1):  # each row its own group's weight
+        torch.testing.assert_close(got[r], rn.rmsnorm_plain(x[r], w[r % g]),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -205,6 +228,29 @@ def test_flash_softcap_matches_plain(cuda, b, s, h, kh, d, dtype, cap):
         assert not torch.allclose(free.float(), got.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d", [
+    (2, 300, 32, 224),   # Zamba2-7B's shared attention, ragged (64 rows a block)
+    (8, 200, 32, 224),   # 128 rows a block
+    (1, 65, 4, 224),
+])
+def test_flash_kernel_at_224_with_a_scale_matches_plain(cuda, b, s, h, d, dtype):
+    """head_dim 224 (14 chunks of 16 columns) at Zamba2's logit scale
+    (D / 2)^-1/2, causal and not, over a K/V ring that wraps."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype) for _ in range(3))
+    scale = (d / 2) ** -0.5
+    for causal in (True, False):
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        assert fa.launches == before + 1
+        want = fa.attention_plain(q, k, v, causal=causal, scale=scale)
+        torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    # the scale is applied: the default one gives another result
+    default = fa.attention_plain(q, k, v, causal=False)
+    assert not torch.allclose(default.float(), got.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 
@@ -244,6 +290,33 @@ def test_ssd_kernel_matches_plain(cuda, b, s, h, p, n, q, ragged, dtype):
     assert y.dtype == dtype and state.dtype == torch.float32
     _close_to_scale(y, want_y, SSD_TOL[dtype])
     _close_to_scale(state, want_state, SSD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g", [(2, 256, 8, 2), (1, 128, 112, 2), (2, 64, 6, 3)])
+def test_ssd_kernel_by_groups_matches_plain(cuda, b, s, h, g, dtype):
+    """B and C (B, S, G, N) in groups, head h reading group h // (H / G),
+    as column slices of one conv output over x, B and C (Zamba2-7B: 112
+    heads over 2 groups)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    p = n = 64
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device=cuda) - 1)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=cuda))
+    xbc = torch.randn(b, s, h * p + 2 * g * n, generator=gen, device=cuda).to(dtype)
+    bm = xbc[..., h * p: h * p + g * n].unflatten(-1, (g, n))
+    cm = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+    before = ss.launches
+    y, state = ss.ssd_scan(x, dt, a_log, bm, cm, 64)
+    assert ss.launches == before + 1
+    want_y, want_state = ss.ssd_plain(x, dt, a_log, bm, cm, 64, return_state=True)
+    _close_to_scale(y, want_y, SSD_TOL[dtype])
+    _close_to_scale(state, want_state, SSD_TOL[torch.float32])
+    # each group's heads read their own B and C: one group alone agrees
+    hg = h // g
+    y1, _ = ss.ssd_scan(x[:, :, hg:2 * hg].contiguous(), dt[..., hg:2 * hg].contiguous(),
+                        a_log[hg:2 * hg].contiguous(), bm[:, :, 1], cm[:, :, 1], 64)
+    assert torch.equal(y1, y[:, :, hg:2 * hg])
 
 
 def test_ssd_kernel_pads_are_exact(cuda):
@@ -724,3 +797,55 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _zamba2_reduced():
+    """The published Zamba2 stack at a small size: uneven uses over 2
+    blocks, G = 2, the conv over x, B and C with a bias, adapters, exact
+    gelu, head_dim 224 at its scale (so the card's flash instance runs)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        get_config("zamba2-7b"), n_layers=5, d_model=224, n_heads=2, n_kv_heads=2,
+        head_dim=224, d_ff=96, vocab=256, ssm_state=16, ssm_heads=8, ssm_chunk=16,
+        hybrid_layer_ids=(1, 2, 4), adapter_rank=8)
+
+
+def test_zamba2_on_the_card_matches_the_cpu_and_launches_the_kernels(cuda):
+    """Prefill then decode at fp32 on the card against the same on the
+    CPU (the kernels' plain versions), with one rmsnorm launch a norm
+    (2 a layer, 2 a use, the final one), one flash launch a use and one
+    SSD launch a layer in the prefill."""
+    cfg = _zamba2_reduced()
+    params = init_params(cfg, seed=3, dtype=torch.float32, device="cpu")
+    on_card = _tree_to(params, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 32), generator=torch.Generator().manual_seed(4))
+    lengths = torch.tensor([32, 19])
+    uses = len(cfg.hybrid_layer_ids)
+
+    def run(p, dev):
+        logits, st = prefill_forward(cfg, p, toks.to(dev), lengths.to(dev),
+                                     state_dtype=torch.float32)
+        state = init_decode_state(cfg, 2, 40, dtype=torch.float32, device=dev)
+        for k, v in st.items():
+            state[k][tuple(slice(0, n) for n in v.shape)] = v
+        out = [logits]
+        for i in range(3):
+            logits, state = decode_step(cfg, p, state, toks[:, i:i + 1].to(dev),
+                                        (lengths + i).to(dev))
+            out.append(logits)
+        return torch.stack(out, 1)
+
+    with torch.no_grad():
+        want = run(params, torch.device("cpu"))
+        counts = (rn.launches, fa.launches, ss.launches)
+        logits, _ = prefill_forward(cfg, on_card, toks.to(cuda), lengths.to(cuda),
+                                    state_dtype=torch.float32)
+        assert (rn.launches - counts[0], fa.launches - counts[1], ss.launches - counts[2]) \
+            == (2 * cfg.n_layers + 2 * uses + 1, uses, cfg.n_layers)
+        got = run(on_card, cuda).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
